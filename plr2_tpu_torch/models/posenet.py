@@ -1,0 +1,150 @@
+"""PoseNet / PoseRefineNet, the port of plr2_tpu/models/posenet.py with
+`use_pallas=True`: the three pose heads run as one `mlp_head` kernel
+launch each, and the query object's rows are selected after the ladder
+(`select_obj`).
+
+Layout is channel-last (B, N, C) throughout, so every 1x1 Conv1d of the
+reference is `F.linear` over the last axis; the modules keep the
+upstream Conv1d / Linear parameters (lib/network.py names and shapes) so
+upstream-format state dicts load with `strict=True`.
+
+  PoseNet(img (B,H,W,3), cloud (B,N,3), choose (B,N), obj (B,))
+    -> pred_r (B,N,4), pred_t (B,N,3), pred_c (B,N,1) in (0,1), emb (B,N,32)
+  PoseRefineNet(cloud (B,N,3), emb (B,N,32), obj (B,))
+    -> pred_r (B,1,4), pred_t (B,1,3)
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from plr2_tpu_torch.models.pspnet import ModifiedResnet
+from plr2_tpu_torch.ops.mlp_head import mlp_head, mlp_head_plain
+
+
+def _weight2d(layer: nn.Module) -> torch.Tensor:
+    """Conv1d(k=1) (out, in, 1) or Linear (out, in) weight as (out, in)."""
+    w = layer.weight
+    return w.reshape(w.shape[0], w.shape[1])
+
+
+def _lin(layer: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """The layer applied over the last axis of x."""
+    return F.linear(x, _weight2d(layer), layer.bias)
+
+
+def _two_scale(m: nn.Module, cloud, emb):
+    x = F.relu(_lin(m.conv1, cloud))
+    e = F.relu(_lin(m.e_conv1, emb))
+    feat_1 = torch.cat([x, e], -1)  # 128
+    x = F.relu(_lin(m.conv2, x))
+    e = F.relu(_lin(m.e_conv2, e))
+    return feat_1, torch.cat([x, e], -1)  # 256
+
+
+class PoseNetFeat(nn.Module):
+    """Dense fusion trunk -> (B, N, 1408) per-point feature."""
+
+    def __init__(self):
+        super().__init__()
+        self.conv1 = nn.Conv1d(3, 64, 1)
+        self.conv2 = nn.Conv1d(64, 128, 1)
+        self.e_conv1 = nn.Conv1d(32, 64, 1)
+        self.e_conv2 = nn.Conv1d(64, 128, 1)
+        self.conv5 = nn.Conv1d(256, 512, 1)
+        self.conv6 = nn.Conv1d(512, 1024, 1)
+
+    def forward(self, cloud, emb):
+        feat_1, feat_2 = _two_scale(self, cloud, emb)
+        y = F.relu(_lin(self.conv5, feat_2))
+        y = F.relu(_lin(self.conv6, y))
+        glob = y.mean(1, keepdim=True).expand(-1, y.shape[1], -1)
+        return torch.cat([feat_1, feat_2, glob], -1)
+
+
+def select_obj(h: torch.Tensor, obj: torch.Tensor, num_obj: int,
+               out_dim: int) -> torch.Tensor:
+    """(B, N, num_obj * out_dim) -> the query object's (B, N, out_dim)."""
+    b, n = h.shape[:2]
+    h = h.reshape(b, n, num_obj, out_dim)
+    idx = obj.long().reshape(b, 1, 1, 1).expand(b, n, 1, out_dim)
+    return torch.gather(h, 2, idx).squeeze(2)
+
+
+class PoseNet(nn.Module):
+    HEADS = (("r", 4), ("t", 3), ("c", 1))
+
+    def __init__(self, num_points: int, num_obj: int, emb_dim: int = 32,
+                 use_kernels: bool = True):
+        super().__init__()
+        self.num_obj = num_obj
+        self.use_kernels = use_kernels
+        self.cnn = ModifiedResnet(emb_dim, use_kernels)
+        self.feat = PoseNetFeat()
+        for tag, od in self.HEADS:
+            setattr(self, f"conv1_{tag}", nn.Conv1d(1408, 640, 1))
+            setattr(self, f"conv2_{tag}", nn.Conv1d(640, 256, 1))
+            setattr(self, f"conv3_{tag}", nn.Conv1d(256, 128, 1))
+            setattr(self, f"conv4_{tag}", nn.Conv1d(128, num_obj * od, 1))
+
+    def forward(self, img, cloud, choose, obj):
+        dt = self.conv1_r.weight.dtype
+        emb = self.cnn(img.to(dt), choose)
+        feat = self.feat(cloud.to(dt), emb)
+        b, n, c = feat.shape
+        x2d = feat.reshape(b * n, c)
+        head = mlp_head if self.use_kernels else mlp_head_plain
+        outs = []
+        for tag, od in self.HEADS:
+            layers = [getattr(self, f"conv{i}_{tag}") for i in range(1, 5)]
+            h = head(x2d, [(_weight2d(m), m.bias) for m in layers])
+            outs.append(select_obj(h.reshape(b, n, -1), obj, self.num_obj, od))
+        pred_r, pred_t, pred_c = outs
+        return pred_r, pred_t, torch.sigmoid(pred_c), emb
+
+
+class PoseRefineNetFeat(nn.Module):
+    """Refiner trunk: two-scale concat (384) -> 512 -> 1024 -> point mean."""
+
+    def __init__(self):
+        super().__init__()
+        self.conv1 = nn.Conv1d(3, 64, 1)
+        self.conv2 = nn.Conv1d(64, 128, 1)
+        self.e_conv1 = nn.Conv1d(32, 64, 1)
+        self.e_conv2 = nn.Conv1d(64, 128, 1)
+        self.conv5 = nn.Conv1d(384, 512, 1)
+        self.conv6 = nn.Conv1d(512, 1024, 1)
+
+    def forward(self, cloud, emb):
+        feat_1, feat_2 = _two_scale(self, cloud, emb)
+        y = F.relu(_lin(self.conv5, torch.cat([feat_1, feat_2], -1)))
+        y = F.relu(_lin(self.conv6, y))
+        return y.mean(1)
+
+
+class PoseRefineNet(nn.Module):
+    HEADS = (("r", 4), ("t", 3))
+
+    def __init__(self, num_points: int, num_obj: int):
+        super().__init__()
+        self.num_obj = num_obj
+        self.feat = PoseRefineNetFeat()
+        for tag, od in self.HEADS:
+            setattr(self, f"conv1_{tag}", nn.Linear(1024, 512))
+            setattr(self, f"conv2_{tag}", nn.Linear(512, 128))
+            setattr(self, f"conv3_{tag}", nn.Linear(128, num_obj * od))
+
+    def forward(self, cloud, emb, obj):
+        dt = self.conv1_r.weight.dtype
+        feat = self.feat(cloud.to(dt), emb.to(dt))
+        b = feat.shape[0]
+        outs = []
+        for tag, od in self.HEADS:
+            h = F.relu(getattr(self, f"conv1_{tag}")(feat))
+            h = F.relu(getattr(self, f"conv2_{tag}")(h))
+            h = getattr(self, f"conv3_{tag}")(h).reshape(b, self.num_obj, od)
+            idx = obj.long().reshape(b, 1, 1).expand(b, 1, od)
+            outs.append(torch.gather(h, 1, idx))
+        return outs[0], outs[1]

@@ -1,0 +1,83 @@
+"""The pose-head ladder x -> 640 -> 256 -> 128 -> K as one CUDA kernel.
+
+Replaces the TPU kernel ``plr2_tpu/ops/pallas_fusion.py``
+``fused_mlp_head`` (forward only). Source: ``csrc/mlp_head.cu``, whose
+header says what bounds it on the H100 (operations) and how it is built.
+
+Weights are in the torch ``Linear`` / ``Conv1d`` layout, (out, in): the
+PoseNet heads hold ``Conv1d`` weights of shape (out, in, 1), viewed as
+(out, in) without a copy. (The JAX kernel takes (in, out).)
+
+``mlp_head`` launches the kernel for CUDA tensors and raises on anything
+the kernel does not take; only for CPU tensors does it run
+``mlp_head_plain``, the same function in plain PyTorch, which repeats the
+kernel's arithmetic: products of working-dtype operands accumulated in
+f32, bias added in f32, ReLU, rounding to the input dtype between layers.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import torch
+
+from plr2_tpu_torch.ops import _build
+
+Params = Sequence[Tuple[torch.Tensor, torch.Tensor]]
+
+launches = 0
+
+
+def mlp_head_plain(x: torch.Tensor, params: Params) -> torch.Tensor:
+    """x (P, C) -> (P, K) through 4 (w (out, in), b (out,)) layers."""
+    dt = x.dtype
+    h = x
+    for i, (w, b) in enumerate(params):
+        h = torch.matmul(h.float(), w.float().t()) + b.float()
+        if i < len(params) - 1:
+            h = torch.relu(h)
+        h = h.to(dt)
+    return h
+
+
+def _check(x: torch.Tensor, params: Params) -> None:
+    what = "mlp_head"
+    if len(params) != 4:
+        raise ValueError(f"{what}: expected 4 layers, got {len(params)}")
+    flat = [x] + [t for wb in params for t in wb]
+    _build.require_cuda(flat, what)
+    _build.require_dtype(flat, what)
+    _build.require_contiguous(flat, what)
+    if x.dim() != 2:
+        raise ValueError(f"{what}: x must be (P, C), got {tuple(x.shape)}")
+    c_in = x.shape[1]
+    for i, (w, b) in enumerate(params):
+        if w.dim() != 2 or w.shape[1] != c_in or b.shape != (w.shape[0],):
+            raise ValueError(
+                f"{what}: layer {i + 1} expects w (N, {c_in}) and b (N,), "
+                f"got {tuple(w.shape)} and {tuple(b.shape)}")
+        c_in = w.shape[0]
+
+
+def mlp_head(x: torch.Tensor, params: Params) -> torch.Tensor:
+    """The ladder through the CUDA kernel (plain PyTorch for CPU tensors)."""
+    global launches
+    if x.device.type == "cpu":
+        return mlp_head_plain(x, params)
+    _check(x, params)
+    (w1, b1), (w2, b2), (w3, b3), (w4, b4) = params
+    n1, n2, n3, n4 = (w.shape[0] for w, _ in params)
+    out = torch.empty((x.shape[0], n4), device=x.device, dtype=x.dtype)
+    err = _build.lib().plr2_mlp_head(
+        _build.DTYPE_CODES[x.dtype], x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+        b2.data_ptr(), w3.data_ptr(), b3.data_ptr(), w4.data_ptr(),
+        b4.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1], n1, n2, n3, n4,
+        _build.stream_of(x))
+    _build.check(err, "mlp_head")
+    launches += 1
+    return out
+
+
+def flops(rows: int, widths: Sequence[int]) -> int:
+    """Multiply-adds x 2 of the ladder: widths = (C, N1, N2, N3, N4)."""
+    return 2 * rows * sum(a * b for a, b in zip(widths[:-1], widths[1:]))

@@ -1,0 +1,90 @@
+"""PSP decoder stage: 2x bilinear upsample + 3x3 conv + bias + PReLU.
+
+Replaces the TPU kernel ``plr2_tpu/ops/pallas_upsample.py``
+``fused_upconv3x3_prelu`` (forward only). Source: ``csrc/upconv.cu``,
+whose header says what bounds it on the H100 (operations) and what its
+design does about it. Same signature as the JAX kernel: x NHWC
+(B, H, W, Cin), w HWIO (3, 3, Cin, Cout), bias (Cout,), alpha a
+one-element tensor; returns (B, 2H, 2W, Cout).
+
+``upconv3x3_prelu`` launches the kernel for CUDA tensors and raises on
+anything the kernel does not take; only for CPU tensors does it run
+``upconv3x3_prelu_plain``, which repeats the kernel's arithmetic: the
+half-pixel upsample computed in f32 and rounded to the input dtype, the
+conv accumulated in f32, bias and PReLU in f32, one rounding at the end.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from plr2_tpu_torch.ops import _build
+
+launches = 0
+
+
+def _upsample2x_axis(v: torch.Tensor, dim: int) -> torch.Tensor:
+    """Half-pixel 2x along `dim`: even 0.25 v[t-1] + 0.75 v[t], odd
+    0.75 v[t] + 0.25 v[t+1], edges clamped; interleaved."""
+    n = v.shape[dim]
+    prev = torch.cat([v.narrow(dim, 0, 1), v.narrow(dim, 0, n - 1)], dim)
+    nxt = torch.cat([v.narrow(dim, 1, n - 1), v.narrow(dim, n - 1, 1)], dim)
+    even = 0.25 * prev + 0.75 * v
+    odd = 0.75 * v + 0.25 * nxt
+    shape = list(v.shape)
+    shape[dim] *= 2
+    return torch.stack([even, odd], dim + 1).reshape(shape)
+
+
+def upsample2x_bilinear(x: torch.Tensor) -> torch.Tensor:
+    """NHWC half-pixel bilinear 2x upsample, in f32 (columns, then rows)."""
+    return _upsample2x_axis(_upsample2x_axis(x.float(), 2), 1)
+
+
+def upconv3x3_prelu_plain(x: torch.Tensor, w: torch.Tensor,
+                          bias: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
+    up = upsample2x_bilinear(x).to(x.dtype).float()
+    y = F.conv2d(up.permute(0, 3, 1, 2), w.float().permute(3, 2, 0, 1),
+                 bias.float(), padding=1)
+    y = torch.where(y >= 0, y, alpha.float().reshape(()) * y)
+    return y.permute(0, 2, 3, 1).to(x.dtype).contiguous()
+
+
+def _check(x, w, bias, alpha) -> None:
+    what = "upconv3x3_prelu"
+    ts = [x, w, bias, alpha]
+    _build.require_cuda(ts, what)
+    _build.require_dtype(ts, what)
+    _build.require_contiguous(ts, what)
+    if x.dim() != 4 or w.dim() != 4 or w.shape[:3] != (3, 3, x.shape[3]):
+        raise ValueError(f"{what}: expected x (B, H, W, Cin) and w (3, 3, Cin, "
+                         f"Cout), got {tuple(x.shape)} and {tuple(w.shape)}")
+    if bias.shape != (w.shape[3],) or alpha.numel() != 1:
+        raise ValueError(f"{what}: expected bias ({w.shape[3]},) and a "
+                         f"one-element alpha, got {tuple(bias.shape)} and "
+                         f"{tuple(alpha.shape)}")
+
+
+def upconv3x3_prelu(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+                    alpha: torch.Tensor) -> torch.Tensor:
+    """The stage through the CUDA kernel (plain PyTorch for CPU tensors)."""
+    global launches
+    if x.device.type == "cpu":
+        return upconv3x3_prelu_plain(x, w, bias, alpha)
+    _check(x, w, bias, alpha)
+    b, h, wd, cin = x.shape
+    cout = w.shape[3]
+    out = torch.empty((b, 2 * h, 2 * wd, cout), device=x.device, dtype=x.dtype)
+    err = _build.lib().plr2_upconv3x3_prelu(
+        _build.DTYPE_CODES[x.dtype], x.data_ptr(), w.data_ptr(),
+        bias.data_ptr(), alpha.data_ptr(), out.data_ptr(), b, h, wd, cin, cout,
+        _build.stream_of(x))
+    _build.check(err, "upconv3x3_prelu")
+    launches += 1
+    return out
+
+
+def flops(b: int, h: int, w: int, cin: int, cout: int) -> int:
+    """2 x multiply-adds of the conv over the (2h, 2w) map."""
+    return 2 * b * (2 * h) * (2 * w) * 9 * cin * cout

@@ -1,0 +1,89 @@
+"""End-to-end estimate: PoseNet -> best hypothesis -> PoseRefineNet
+iterations, the port of plr2_tpu/pipeline.py `DenseFusionPipeline` in its
+`use_pallas=True` configuration.
+
+The pipeline lives on one device, "cuda" unless the caller asks for
+another; asking for CUDA where there is none raises. With
+`use_kernels=True` (the default) the decoder stages and pose heads run the
+hand-written CUDA kernels (plain PyTorch only for CPU tensors); with
+`use_kernels=False` they run the kernels' plain versions on any device,
+which is how a run on the card compares the two.
+
+Modes: float32 (reference parity) and, after `cast(torch.bfloat16)`, the
+bf16 fast-inference mode (the counterpart of `cast_variables`): network
+parameters and activations in bf16, while the pose arithmetic (best
+hypothesis, re-centring, composition) stays in f32.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping, NamedTuple, Optional
+
+import torch
+
+from plr2_tpu_torch.models.posenet import PoseNet, PoseRefineNet
+from plr2_tpu_torch.models.weights import (init_random_, posenet_state_dict,
+                                           refinenet_state_dict)
+from plr2_tpu_torch.refine.iterative import initial_pose, iterative_refine
+
+
+class PoseEstimate(NamedTuple):
+    quat: torch.Tensor        # (B, 4) wxyz, normalized
+    trans: torch.Tensor       # (B, 3)
+    confidence: torch.Tensor  # (B,) max per-point confidence
+
+
+def resolve_device(device) -> torch.device:
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device} requested but CUDA is not "
+                           "available; pass device='cpu' to run on the CPU")
+    return device
+
+
+class DenseFusionPipeline:
+    def __init__(self, num_points: int, num_objects: int, emb_dim: int = 32,
+                 use_kernels: bool = True, device="cuda",
+                 seed: Optional[int] = 0):
+        """Builds PoseNet and PoseRefineNet in eval mode on `device`, with
+        weights from `torch.Generator().manual_seed(seed)` (or left
+        uninitialised with seed=None, for `load_jax_variables`)."""
+        self.device = resolve_device(device)
+        with torch.device("meta"):
+            posenet = PoseNet(num_points, num_objects, emb_dim, use_kernels)
+            refiner = PoseRefineNet(num_points, num_objects)
+        self.posenet = posenet.to_empty(device=self.device).eval()
+        self.refiner = refiner.to_empty(device=self.device).eval()
+        if seed is not None:
+            g = torch.Generator().manual_seed(seed)
+            init_random_(self.posenet, g)
+            init_random_(self.refiner, g)
+        self.dtype = torch.float32
+
+    def load_jax_variables(self, variables: Mapping) -> "DenseFusionPipeline":
+        """Load the JAX pipeline's {"posenet": ..., "refiner": ...} variables
+        (nested dicts of numpy arrays)."""
+        self.posenet.load_state_dict(posenet_state_dict(variables["posenet"]),
+                                     strict=True)
+        self.refiner.load_state_dict(refinenet_state_dict(variables["refiner"]),
+                                     strict=True)
+        return self
+
+    def cast(self, dtype=torch.bfloat16) -> "DenseFusionPipeline":
+        """Cast the float parameters and statistics of both networks."""
+        self.posenet.to(dtype)
+        self.refiner.to(dtype)
+        self.dtype = dtype
+        return self
+
+    @torch.no_grad()
+    def estimate(self, img, cloud, choose, obj,
+                 refine_iterations: int = 2) -> PoseEstimate:
+        """(B,H,W,3) crop + (B,N,3) cloud + (B,N) choose + (B,) obj -> pose."""
+        pred_r, pred_t, pred_c, emb = self.posenet(img, cloud, choose, obj)
+        cloud = cloud.float()
+        q0, t0 = initial_pose(pred_r.float(), pred_t.float(), pred_c, cloud)
+        q, t = iterative_refine(self.refiner, cloud, emb, obj, q0, t0,
+                                refine_iterations)
+        return PoseEstimate(quat=q, trans=t,
+                            confidence=pred_c[..., 0].float().amax(-1))

@@ -1,0 +1,146 @@
+"""plr2_tpu_torch.DenseFusionPipeline against the JAX pipeline in its
+`use_pallas=True` configuration, plus the port's package rules: it imports
+no JAX and no plr2_tpu module, and runs on the CPU only when asked to."""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from plr2_tpu.pipeline import DenseFusionPipeline as JPipeline
+from plr2_tpu.refine.iterative import initial_pose as j_initial_pose
+from plr2_tpu_torch import DenseFusionPipeline
+from plr2_tpu_torch.refine import initial_pose
+
+torch.set_num_threads(2)
+
+ROOT = Path(__file__).resolve().parents[1]
+NUM_OBJ, N, HW = 5, 64, 80
+
+
+def _numpy_variables(rng, shapes):
+    """Seeded numpy weights for the JAX variable tree `shapes`:
+    LeCun-normal kernels, small biases, random BN statistics."""
+    def fill(path, s):
+        name = str(path[-1])
+        if "var" in name:
+            return (np.abs(rng.normal(size=s.shape)) * 0.5 + 0.3).astype(np.float32)
+        if "mean" in name:
+            return (rng.normal(size=s.shape) * 0.3).astype(np.float32)
+        if "scale" in name:
+            return np.ones(s.shape, np.float32)
+        if "prelu_alpha" in name:
+            return np.full(s.shape, 0.25, np.float32)
+        if "kernel" in name:
+            fan_in = int(np.prod(s.shape[:-1]))
+            return (rng.normal(size=s.shape) / np.sqrt(fan_in)).astype(np.float32)
+        return (rng.normal(size=s.shape) * 0.05).astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(fill, shapes)
+
+
+def test_estimate_matches_jax_pallas_pipeline():
+    rng = np.random.default_rng(11)
+    img = rng.normal(size=(2, HW, HW, 3)).astype(np.float32)
+    cloud = (rng.normal(size=(2, N, 3)) * 0.1).astype(np.float32)
+    choose = rng.integers(0, HW * HW, size=(2, N)).astype(np.int32)
+    obj = np.array([2, 4], dtype=np.int32)
+
+    jpipe = JPipeline(num_points=N, num_objects=NUM_OBJ, use_pallas=True)
+    shapes = jax.eval_shape(lambda k: jpipe.init(k, crop_hw=HW, batch=1),
+                            jax.random.key(0))
+    variables = _numpy_variables(rng, shapes)
+    want = jpipe.estimate(variables, *map(jnp.asarray, (img, cloud, choose, obj)),
+                          refine_iterations=2)
+
+    pipe = DenseFusionPipeline(N, NUM_OBJ, device="cpu", seed=None)
+    pipe.load_jax_variables(variables)
+    got = pipe.estimate(*map(torch.from_numpy, (img, cloud, choose, obj)),
+                        refine_iterations=2)
+    assert got.quat.shape == (2, 4) and got.trans.shape == (2, 3)
+    # PoseNet's outputs agree to 2e-3 (tests/test_torch_parity.py), the
+    # best hypothesis is the same point in both, and two refiner steps of
+    # f32 arithmetic in another order keep the pose within that tolerance
+    np.testing.assert_allclose(got.quat.numpy(), np.asarray(want.quat), atol=2e-3)
+    np.testing.assert_allclose(got.trans.numpy(), np.asarray(want.trans), atol=2e-3)
+    np.testing.assert_allclose(got.confidence.numpy(),
+                               np.asarray(want.confidence), atol=2e-4)
+    np.testing.assert_allclose(np.linalg.norm(got.quat.numpy(), axis=-1), 1.0,
+                               atol=1e-6)
+
+
+def test_estimate_bf16_mode_runs_on_cpu():
+    pipe = DenseFusionPipeline(16, 3, device="cpu", seed=3).cast(torch.bfloat16)
+    g = torch.Generator().manual_seed(0)
+    img = torch.randn((2, 48, 48, 3), generator=g)
+    cloud = torch.randn((2, 16, 3), generator=g) * 0.1
+    choose = torch.randint(0, 48 * 48, (2, 16), generator=g)
+    est = pipe.estimate(img, cloud, choose, torch.tensor([0, 2]))
+    assert pipe.posenet.conv1_r.weight.dtype == torch.bfloat16
+    assert est.quat.dtype == torch.float32  # pose arithmetic stays f32
+    assert torch.isfinite(est.quat).all() and torch.isfinite(est.trans).all()
+    torch.testing.assert_close(est.quat.norm(dim=-1), torch.ones(2))
+
+
+def test_seeded_weights_are_reproducible():
+    a = DenseFusionPipeline(16, 3, device="cpu", seed=5)
+    b = DenseFusionPipeline(16, 3, device="cpu", seed=5)
+    c = DenseFusionPipeline(16, 3, device="cpu", seed=6)
+    for (name, ta), tb, tc in zip(a.posenet.state_dict().items(),
+                                  b.posenet.state_dict().values(),
+                                  c.posenet.state_dict().values()):
+        assert torch.equal(ta, tb), name
+    assert not torch.equal(a.posenet.conv1_r.weight, c.posenet.conv1_r.weight)
+
+
+def test_initial_pose_first_index_wins_ties():
+    rng = np.random.default_rng(3)
+    pred_r = rng.normal(size=(2, 6, 4)).astype(np.float32)
+    pred_t = rng.normal(size=(2, 6, 3)).astype(np.float32)
+    points = rng.normal(size=(2, 6, 3)).astype(np.float32)
+    pred_c = np.full((2, 6, 1), 0.2, np.float32)
+    pred_c[0, [1, 4]] = 0.9   # tie: index 1 wins
+    pred_c[1, :] = 0.5        # all tied: index 0 wins
+    q, t = initial_pose(*map(torch.from_numpy, (pred_r, pred_t, pred_c, points)))
+    jq, jt = j_initial_pose(pred_r, pred_t, pred_c, points)
+    np.testing.assert_allclose(t.numpy(), points[[0, 1], [1, 0]] +
+                               pred_t[[0, 1], [1, 0]], atol=1e-6)
+    np.testing.assert_allclose(q.numpy(), np.asarray(jq), atol=1e-6)
+    np.testing.assert_allclose(t.numpy(), np.asarray(jt), atol=1e-6)
+
+
+def test_import_hygiene_no_jax_no_reference_package():
+    """The port (and chip_smoke.py) import neither jax nor flax nor any
+    plr2_tpu module, and read no .msgpack checkpoint."""
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'flax', 'plr2_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        "import plr2_tpu_torch, plr2_tpu_torch.ops, plr2_tpu_torch.models\n"
+        "import plr2_tpu_torch.refine, plr2_tpu_torch.geometry, chip_smoke\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'flax', 'plr2_tpu') and sys.modules[m] is not None]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
+    sources = list((ROOT / "plr2_tpu_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py"]
+    for path in sources:
+        text = path.read_text()
+        assert "msgpack" not in text, path
+        assert "import jax" not in text and "from jax" not in text, path
+        assert "plr2_tpu." not in text.replace("plr2_tpu_torch", ""), path
+
+
+def test_default_device_is_cuda_and_never_falls_back():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card, so the default device works")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        DenseFusionPipeline(16, 3)
