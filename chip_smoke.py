@@ -11,14 +11,27 @@ non-zero, and there is no CPU fallback:
    git-ignored plr2_tpu_torch/_build/) and prints the wall time.
 3. kernels: each CUDA kernel against its plain PyTorch version on the card,
    in f32 and bf16, at the shapes the main path gives it (batch 8).
-4. main path: DenseFusionPipeline.estimate at YCB width (21 objects, 1000
+4. knn: the three ADD-S nearest-neighbour kernels (nn_match, nn_argmin,
+   nn_match_mxu) against their plain twins at the stage-1 shape (5
+   symmetric samples x 500k queries x 500 targets) and at YCB's 2600-point
+   large mesh, plus duplicate targets (the first index must win).
+5. gradients: the mlp_head and upconv3x3_prelu autograd Functions against
+   autograd of their plain versions at the training shapes (batch 32).
+6. main path: DenseFusionPipeline.estimate at YCB width (21 objects, 1000
    points, 160 px crops, 2 refine iterations, batch 8, seeded random
    weights) in f32 and bf16; checks the kernel launch counts of the run,
    finite outputs and unit quaternions, and q/t against the same pipeline
    run through the plain versions on the card.
-5. timing: estimate frames/s at batch 8 and 128, and per-kernel times at
-   the main-path shapes beside the plain version, one PyTorch library
-   call of the same function, and the bound of the H100.
+7. train: one f32 stage-1 step and one refine-stage step of
+   make_train_step at batch 32 (500 mesh points, YCB's symmetric objects),
+   each once through the kernels and once through the plain versions from
+   the same state and dropout seed; checks the launch counts of each step,
+   loss, dis, gradients, updated parameters and BN running statistics;
+   then 3 more stage-1 steps with finite losses.
+8. timing: estimate frames/s at batch 8 and 128, per-kernel times at the
+   main-path shapes beside the plain version, one PyTorch library call of
+   the same function, and the bound of the H100; train-step ms and
+   samples/s of both stages; a profiler table of a stage-1 step.
 
 The second-to-last line is a JSON object with one entry per kernel and
 dtype; the last line is {"ok": true, "device": {...}}.
@@ -27,6 +40,7 @@ dtype; the last line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -62,12 +76,37 @@ TOL = {"f32": (1e-4, 1e-4), "bf16": (3e-2, 3e-2)}
 POSE_TOL = {"f32": 1e-3, "bf16": 5e-2}
 CONF_TIE = {"f32": 1e-5, "bf16": 1e-2}
 
+# training slice: bench.py --train's batch, YCB's mesh sizes and
+# symmetric objects (plr2_tpu/config.py:139), the reference w and lr
+TRAIN_BATCH, MESH_POINTS, MESH_LARGE = 32, 500, 2600
+SYM_LIST, W, LR = (12, 15, 18, 19, 20), 0.015, 1e-4
+# stage-1 ADD-S match: the symmetric samples of idx = arange(32) % 21
+NUM_SYM = sum(int(i % NUM_OBJ in SYM_LIST) for i in range(TRAIN_BATCH))
+# nn_match_mxu vs its twin: the kernel fuses a.(-2b) into FMAs and the twin
+# rounds each product, so they may pick different targets only where two
+# targets' augmented d2 agree to within rounding of the summed terms
+# (|a|^2, |b|^2 and 2 a.b, which cancel down to d2)
+MXU_TIE = 1e-6
+# train step, kernels vs plain versions on the card (f32): relative error
+# of loss and dis; each parameter's gradient in relative L2 norm: f32 sums
+# over 32,000 rows or 51,200 pixels in another order, and ReLU masks of
+# near-zero activations that the kernel's forward and the cuBLAS recompute
+# in the ladder's backward may put on different sides of 0 (measured on an
+# H100 80GB HBM3 at 700 W: 1.9e-4 on the colour encoder, and 1.4e-4 of the
+# largest entry on the heads); BN statistics as |d| <= atol + rtol |ref|
+STEP_TOL = {"loss": 1e-5, "grad_l2": 1e-3, "bn": (1e-5, 1e-4)}
+
 DEVICE = "cuda"
 
 SOURCES = {"mlp_head": ("plr2_tpu_torch/csrc/mlp_head.cu",
                         "plr2_tpu/ops/pallas_fusion.py:55"),
            "upconv3x3_prelu": ("plr2_tpu_torch/csrc/upconv.cu",
                                "plr2_tpu/ops/pallas_upsample.py:255")}
+KNN_SOURCES = {"nn_match": "plr2_tpu/ops/pallas_knn.py:121",
+               "nn_argmin": "plr2_tpu/ops/pallas_knn.py:66",
+               "nn_match_mxu": "plr2_tpu/ops/pallas_knn.py:197"}
+NO_KNN = {name: 0 for name in KNN_SOURCES}
+PATH_NAMES = {"f32": "estimate_f32", "bf16": "estimate_bf16"}
 
 
 def phase(name):
@@ -192,6 +231,288 @@ def kernels_phase():
     return errs
 
 
+def knn_inputs(gen, m2, queries=None):
+    """The stage-1 ADD-S match: NUM_SYM samples x (NUM_POINTS hypotheses x
+    MESH_POINTS mesh points) queries against m2 targets, at mesh scale."""
+    p = queries or NUM_POINTS * MESH_POINTS
+    return _rand((NUM_SYM, p, 3), gen, 0.05), _rand((NUM_SYM, m2, 3), gen, 0.05)
+
+
+def mxu_disagreements(q, got, ref):
+    """Rows where nn_match_mxu and its twin matched different targets; each
+    must be a near-tie of the twin's augmented d2 (see MXU_TIE)."""
+    from plr2_tpu_torch.ops import knn
+    rows = (got != ref).any(-1).nonzero(as_tuple=True)
+    if not rows[0].numel():
+        return 0, 0.0
+    a, bk, bp = q[rows][:, None], got[rows][:, None], ref[rows][:, None]
+    d2k = knn._d2_augmented(a, bk).flatten()
+    d2p = knn._d2_augmented(a, bp).flatten()
+    scale = (a * a).sum((-2, -1)) + (bp * bp).sum((-2, -1))
+    return int(rows[0].numel()), float(((d2k - d2p).abs() / scale).max())
+
+
+@phase("knn")
+def knn_phase():
+    from plr2_tpu_torch.ops import knn
+    gen = torch.Generator().manual_seed(4)
+    errs = {name: 0.0 for name in KNN_SOURCES}
+    for m2 in (MESH_POINTS, MESH_LARGE):
+        q, t = knn_inputs(gen, m2)
+        shape = f"q {tuple(q.shape)} t {tuple(t.shape)}"
+        idx = knn.nn_argmin(q, t)
+        match = knn.nn_match(q, t)
+        mxu = knn.nn_match_mxu(q, t)
+        torch.cuda.synchronize()
+        idx_p = knn.nn_argmin_plain(q, t)
+        match_p = knn.nn_match_plain(q, t)
+        mxu_p = knn.nn_match_mxu_plain(q, t)
+        n_idx = int((idx != idx_p).sum())
+        n_match = int((match != match_p).any(-1).sum())
+        picked = torch.gather(t, 1, idx[..., None].expand(-1, -1, 3))
+        n_diff, worst = mxu_disagreements(q, mxu, mxu_p)
+        print(f"  nn_argmin {shape}: {n_idx} indices differ from the twin "
+              f"(exact: must be 0) {'ok' if n_idx == 0 else 'FAIL'}")
+        print(f"  nn_match {shape}: {n_match} rows differ from the twin "
+              f"(exact: must be 0) {'ok' if n_match == 0 else 'FAIL'}")
+        print(f"  nn_match_mxu {shape}: {n_diff} rows pick another target "
+              f"than the twin; largest |d2 difference| / (|a|^2 + |b|^2) "
+              f"{worst:.3e} (tol {MXU_TIE:g}) "
+              f"{'ok' if worst <= MXU_TIE else 'FAIL'}")
+        if n_idx or n_match or not torch.equal(match, picked):
+            raise AssertionError(f"exact-difference knn kernels disagree "
+                                 f"with their plain twins at {shape}")
+        if worst > MXU_TIE:
+            raise AssertionError(f"nn_match_mxu disagrees with its twin "
+                                 f"beyond near-ties at {shape}")
+        errs["nn_argmin"] = max(errs["nn_argmin"], float((idx - idx_p).abs().max()))
+        errs["nn_match"] = max(errs["nn_match"], float((match - match_p).abs().max()))
+        errs["nn_match_mxu"] = max(errs["nn_match_mxu"],
+                                   float((mxu - mxu_p).abs().max()))
+        del q, t, idx, match, mxu, idx_p, match_p, mxu_p, picked
+    # duplicate targets: every odd target repeats the even one before it,
+    # so each query ties exactly between two indices and the even one wins
+    q, t = knn_inputs(gen, MESH_POINTS, queries=100_000)
+    t[:, 1::2] = t[:, 0::2]
+    idx = knn.nn_argmin(q, t)
+    same = [torch.equal(f(q, t), g(q, t)) for f, g in (
+        (knn.nn_argmin, knn.nn_argmin_plain), (knn.nn_match, knn.nn_match_plain),
+        (knn.nn_match_mxu, knn.nn_match_mxu_plain))]
+    odd = int((idx % 2).sum())
+    print(f"  ties (duplicate targets) {tuple(q.shape)}: {odd} odd indices "
+          f"(must be 0); kernels equal their twins: {same}")
+    if odd or not all(same):
+        raise AssertionError("knn kernels do not take the first index on ties")
+    return errs
+
+
+@phase("gradients")
+def grad_phase():
+    """The kernels' autograd Functions against autograd of the plain
+    versions, f32, at the training shapes; the cotangent is scaled by
+    1/sqrt(rows) so gradients are O(1), under the f32 kernel tolerance."""
+    from plr2_tpu_torch.ops import mlp_head, upconv
+    gen = torch.Generator().manual_seed(5)
+    tol = TOL["f32"]
+
+    def both(fn_k, fn_p, args, cot):
+        leaves = [[a.clone().requires_grad_(True) for a in args] for _ in range(2)]
+        for fn, ls in ((fn_k, leaves[0]), (fn_p, leaves[1])):
+            (fn(*ls) * cot).sum().backward()
+        return [(k.grad, p.grad) for k, p in zip(*leaves)]
+
+    for name in STAGES:
+        args = stage_inputs(name, torch.float32, gen, TRAIN_BATCH)
+        b, h, w, _ = args[0].shape
+        cot = _rand((b, 2 * h, 2 * w, args[1].shape[3]), gen,
+                    (b * 4 * h * w) ** -0.5)
+        for arg, (gk, gp) in zip(("x", "w", "bias", "alpha"), both(
+                upconv.upconv3x3_prelu, upconv.upconv3x3_prelu_plain, args, cot)):
+            compare(f"d{arg} upconv3x3_prelu {name} f32 {tuple(args[0].shape)}",
+                    gk, gp, tol)
+    for tag in HEAD_OUT:
+        x, params = head_inputs(tag, torch.float32, gen, TRAIN_BATCH)
+        flat = [x] + [t for wb in params for t in wb]
+        cot = _rand((x.shape[0], params[-1][0].shape[0]), gen, x.shape[0] ** -0.5)
+
+        def unflat(fn):
+            return lambda x, *f: fn(x, list(zip(f[0::2], f[1::2])))
+        grads = both(unflat(mlp_head.mlp_head), unflat(mlp_head.mlp_head_plain),
+                     flat, cot)
+        for arg, (gk, gp) in zip(["x"] + [f"{n}{i}" for i in range(1, 5)
+                                          for n in ("w", "b")], grads):
+            compare(f"d{arg} mlp_head {tag} f32 {tuple(x.shape)}", gk, gp, tol)
+
+
+def train_batch(seed=6):
+    """A seeded batch at the slice's shape: `target` is `model_points` under
+    a random rigid pose per sample, so it is not a copy of it."""
+    from plr2_tpu_torch.geometry import quat_to_matrix_df
+    g = torch.Generator().manual_seed(seed)
+    b = TRAIN_BATCH
+    img = torch.randn((b, CROP, CROP, 3), generator=g)
+    points = torch.randn((b, NUM_POINTS, 3), generator=g) * 0.1
+    choose = torch.randint(0, CROP * CROP, (b, NUM_POINTS), generator=g)
+    mp = torch.randn((b, MESH_POINTS, 3), generator=g) * 0.05
+    q = torch.randn((b, 4), generator=g)
+    rot = quat_to_matrix_df(q / q.norm(dim=-1, keepdim=True))
+    target = (mp[..., :, None, :] * rot[:, None]).sum(-1) \
+        + torch.randn((b, 1, 3), generator=g) * 0.05
+    batch = dict(img=img, points=points, choose=choose, target=target,
+                 model_points=mp, idx=torch.arange(b) % NUM_OBJ)
+    return {k: v.to(DEVICE) for k, v in batch.items()}
+
+
+def compare_steps(what, mod_k, mod_p, step_k, step_p, met_k, met_p, before):
+    """Kernel step vs plain step from the same state: loss, dis, gradients
+    (from Adam's first moment), updated parameters (each within what Adam
+    makes of gradients that differ as measured) and BN running stats."""
+    worst = {}
+    for key in ("loss", "dis"):
+        k, p = float(met_k[key]), float(met_p[key])
+        worst[key] = abs(k - p) / max(abs(p), 1e-30)
+    params_p = dict(mod_p.named_parameters())
+    grad_err, max_param, bad = 0.0, 0.0, []
+    for name, pk in mod_k.named_parameters():
+        pp = params_p[name]
+        gk = step_k.optimizer.state[pk]["exp_avg"].double() / 0.1
+        gp = step_p.optimizer.state[pp]["exp_avg"].double() / 0.1
+        err = gk - gp
+        rel = float(err.norm() / gp.norm().clamp(min=1e-300))
+        grad_err = max(grad_err, rel)
+        if rel > STEP_TOL["grad_l2"]:
+            bad.append((name, "grad", rel))
+        d = float(err.abs().max())
+        margin = (gp.abs() - d).clamp(min=0)
+        bound = torch.where(margin > 0, LR * d / margin.clamp(min=1e-300),
+                            torch.full_like(margin, 2 * LR)).clamp(max=2 * LR)
+        b0 = before[name].double()
+        slack = 1e-7 + 2.4e-7 * b0.abs()
+        diff = ((pk.detach().double() - b0) - (pp.detach().double() - b0)).abs()
+        if bool((diff > bound + slack).any()):
+            bad.append((name, "update", float((diff - bound).max())))
+        max_param = max(max_param, float(diff.max()))
+    max_bn = 0.0
+    state_p = mod_p.state_dict()
+    atol, rtol = STEP_TOL["bn"]
+    for name, tk in mod_k.state_dict().items():
+        if "running" in name:
+            tp = state_p[name]
+            dev = float(((tk - tp).abs() - rtol * tp.abs()).max())
+            max_bn = max(max_bn, float((tk - tp).abs().max()))
+            if dev > atol:
+                bad.append((name, "bn", dev))
+    ok = (not bad and worst["loss"] <= STEP_TOL["loss"]
+          and worst["dis"] <= STEP_TOL["loss"])
+    print(f"  {what} kernels vs plain: loss {float(met_k['loss']):.6f} / "
+          f"{float(met_p['loss']):.6f} (rel {worst['loss']:.2e}), dis "
+          f"{float(met_k['dis']):.6f} / {float(met_p['dis']):.6f} (rel "
+          f"{worst['dis']:.2e}), tol {STEP_TOL['loss']:g}")
+    print(f"    gradients: largest relative L2 error {grad_err:.2e} (tol "
+          f"{STEP_TOL['grad_l2']:g}); largest updated-parameter difference {max_param:.3e} (lr {LR:g}; "
+          f"bound: Adam's step for the measured gradient gap); largest BN "
+          f"running-stat difference {max_bn:.3e} (tol {atol:g} + {rtol:g}|ref|) "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{what}: kernel step disagrees with the plain "
+                             f"step: {bad[:5]}")
+    return {"max_param_diff": max_param, "max_bn_diff": max_bn,
+            "grad_l2": grad_err, **worst}
+
+
+def run_step(step, batch, seed):
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    met = step(batch, gen)
+    torch.cuda.synchronize()
+    return met
+
+
+@phase("train")
+def train_phase():
+    from plr2_tpu_torch import DenseFusionPipeline
+    from plr2_tpu_torch.ops import launch_counts, reset_launch_counts
+    from plr2_tpu_torch.parallel import make_train_step
+    kern = DenseFusionPipeline(NUM_POINTS, NUM_OBJ, device=DEVICE, seed=0)
+    plain = DenseFusionPipeline(NUM_POINTS, NUM_OBJ, use_kernels=False,
+                                device=DEVICE, seed=0)
+    batch = train_batch()
+    print(f"  batch {TRAIN_BATCH}, {NUM_SYM} symmetric samples: the stage-1 "
+          f"ADD-S match is {NUM_SYM} x {NUM_POINTS * MESH_POINTS} queries "
+          f"against {MESH_POINTS} targets")
+    launches, result = {}, {}
+    for stage, iters, expect in (
+            ("train_stage1", 0, {"mlp_head": 3, "upconv3x3_prelu": 3,
+                                 "nn_match": 1, "nn_argmin": 0, "nn_match_mxu": 0}),
+            ("train_refine", ITERS, {"mlp_head": 3, "upconv3x3_prelu": 3,
+                                     "nn_match": ITERS, "nn_argmin": 0,
+                                     "nn_match_mxu": 0})):
+        mod_k, mod_p = ((kern.refiner, plain.refiner) if iters
+                        else (kern.posenet, plain.posenet))
+        if iters:  # the same state: PoseNet as the kernel run left it
+            plain.posenet.load_state_dict(kern.posenet.state_dict())
+        before = {k: v.detach().clone() for k, v in mod_k.named_parameters()}
+        step_k = make_train_step(kern, SYM_LIST, W, LR, refine_iterations=iters)
+        step_p = make_train_step(plain, SYM_LIST, W, LR, refine_iterations=iters)
+        reset_launch_counts()
+        met_k = run_step(step_k, batch, seed=11)
+        counts = launch_counts()
+        print(f"  launches in one {stage} step: {counts}")
+        if counts != expect:
+            raise AssertionError(f"{stage}: expected launches {expect}, got {counts}")
+        met_p = run_step(step_p, batch, seed=11)
+        if launch_counts() != counts:
+            raise AssertionError(f"{stage}: the plain step launched a kernel")
+        launches[stage] = counts
+        result[stage] = compare_steps(stage, mod_k, mod_p, step_k, step_p,
+                                      met_k, met_p, before)
+        result[stage]["step"] = step_k
+    del plain
+    torch.cuda.empty_cache()
+    losses = [float(run_step(result["train_stage1"]["step"], batch, seed=12 + i)["loss"])
+              for i in range(3)]
+    print(f"  3 more stage-1 steps: losses {losses}")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError("non-finite stage-1 loss")
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        raise AssertionError("TF32 was switched on")
+    return kern, batch, launches, result
+
+
+def step_ms(step, batch, reps):
+    run_step(step, batch, seed=20)
+    t0 = time.perf_counter()
+    for i in range(reps):
+        step(batch, torch.Generator(device=DEVICE).manual_seed(21 + i))
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def profile_step(step, batch):
+    """The ten CUDA kernels of one stage-1 step that take the most device
+    time, by the profiler's device-side events (summing the host-side ops
+    as well would count each kernel twice)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    run_step(step, batch, seed=30)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run_step(step, batch, seed=31)
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = [(e.self_device_time_total / 1e3, e) for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    total = sum(ms for ms, _ in kernels)
+    print(f"  profiler, one stage-1 step: wall {wall:.3f} ms, device busy "
+          f"{total:.3f} ms ({100 * total / wall:.1f}% of the wall time), "
+          f"{sum(e.count for _, e in kernels)} kernel launches")
+    if not kernels:
+        print("  the profiler recorded no device time: the step times above "
+              "(host clock around synchronised steps) stand alone")
+    for ms, e in sorted(kernels, key=lambda v: -v[0])[:10]:
+        print(f"    {ms:9.3f} ms {100 * ms / total:5.1f}%  x{e.count:<5d} "
+              f"{e.key[:100]}")
+    return wall, total
+
+
 def main_inputs(batch, seed=2):
     g = torch.Generator().manual_seed(seed)
     img = torch.randn((batch, CROP, CROP, 3), generator=g)
@@ -232,7 +553,7 @@ def main_path_phase():
         torch.cuda.synchronize()
         counts = launch_counts()
         print(f"  launches in one estimate ({dt_name}): {counts}")
-        if counts != {"mlp_head": 3, "upconv3x3_prelu": 3}:
+        if counts != {"mlp_head": 3, "upconv3x3_prelu": 3, **NO_KNN}:
             raise AssertionError("expected 3 mlp_head + 3 upconv3x3_prelu "
                                  f"launches per PoseNet forward, got {counts}")
         launches[dt_name] = counts
@@ -371,13 +692,17 @@ def timing_phase(kern, launches, errs):
             for key, v in (("ms", k), ("plain_ms", p), ("library_ms", lib),
                            ("flops", fl), ("bytes", by)):
                 t[key] += v
+        paths = (("f32", "train_stage1", "train_refine") if dt_name == "f32"
+                 else ("bf16",))
         for kname, t in tot.items():
             ops_ms = t["flops"] / PEAK_FLOPS[dt_name] * 1e3
             bytes_ms = t["bytes"] / HBM_BYTES_PER_S * 1e3
+            by_path = {PATH_NAMES.get(pth, pth): launches[pth][kname]
+                       for pth in paths}
             entries.append({
                 "name": f"{kname}_{dt_name}", "route": "cuda",
                 "source": SOURCES[kname][0], "replaces": SOURCES[kname][1],
-                "launches": launches[dt_name][kname],
+                "launches": sum(by_path.values()), "launches_by_path": by_path,
                 "max_abs_err": errs[(kname, dt_name)],
                 "ms": t["ms"], "plain_ms": t["plain_ms"],
                 "bound_ms": max(ops_ms, bytes_ms),
@@ -386,16 +711,83 @@ def timing_phase(kern, launches, errs):
     return frames, entries
 
 
+@phase("train timing")
+def train_timing_phase(kern, batch, result, launches, errs):
+    """Train-step ms and samples/s of both stages (host clock around
+    synchronised steps), a profiler table of a stage-1 step, and the knn
+    kernels at the stage-1 shape beside their twins, a PyTorch library
+    yardstick (torch.cdist + argmin + gather, timed here only) and the
+    H100's bound."""
+    from plr2_tpu_torch.ops import knn
+    from plr2_tpu_torch.parallel import make_train_step
+    times = {}
+    refine = make_train_step(kern, SYM_LIST, W, LR, refine_iterations=ITERS)
+    for stage, step in (("stage1", result["train_stage1"]["step"]),
+                        ("refine", refine)):
+        ms = step_ms(step, batch, 5)
+        times[f"{stage}_ms"] = ms
+        times[f"{stage}_samples_per_s"] = TRAIN_BATCH * 1e3 / ms
+        print(f"  {stage} step f32 batch {TRAIN_BATCH}: {ms:.3f} ms = "
+              f"{TRAIN_BATCH * 1e3 / ms:.1f} samples/s")
+    times["profile_wall_ms"], times["profile_device_ms"] = profile_step(
+        result["train_stage1"]["step"], batch)
+
+    gen = torch.Generator().manual_seed(7)
+    q, t = knn_inputs(gen, MESH_POINTS)
+    s, p, m2 = q.shape[0], q.shape[1], t.shape[1]
+
+    def library_index():
+        return torch.cdist(q, t).argmin(-1)
+
+    def library_match():
+        return torch.gather(t, 1, library_index()[..., None].expand(-1, -1, 3))
+    entries = []
+    for name, fn, plain, lib, out_bytes in (
+            ("nn_match", knn.nn_match, knn.nn_match_plain, library_match, 12),
+            ("nn_argmin", knn.nn_argmin, knn.nn_argmin_plain, library_index, 8),
+            ("nn_match_mxu", knn.nn_match_mxu, knn.nn_match_mxu_plain,
+             library_match, 12)):
+        k = time_ms(lambda: fn(q, t), 10)
+        pl = time_ms(lambda: plain(q, t), 3, warmup=1)
+        lb = time_ms(lib, 3, warmup=1)
+        ops_ms = knn.flops(s * p, m2) / PEAK_FLOPS["f32"] * 1e3
+        bytes_ms = (12 * s * p + 12 * s * m2 + out_bytes * s * p) / HBM_BYTES_PER_S * 1e3
+        by_path = {pth: launches[pth][name] for pth in ("train_stage1", "train_refine")}
+        print(f"  {name} f32 q {tuple(q.shape)} t {tuple(t.shape)}: kernel "
+              f"{k:.3f} ms ({knn.flops(s * p, m2) / k / 1e9:.1f} TFLOP/s at 8 "
+              f"FLOP/pair), plain {pl:.3f} ms, library {lb:.3f} ms, bound "
+              f"{max(ops_ms, bytes_ms):.3f} ms")
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "plr2_tpu_torch/csrc/knn.cu",
+            "replaces": KNN_SOURCES[name],
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": errs[name], "ms": k, "plain_ms": pl,
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "library_ms": lb})
+    return times, entries
+
+
 def main():
     t0 = time.perf_counter()
     import_port()
     smi = device_phase()
     build_s = build_phase()
     errs = kernels_phase()
+    knn_errs = knn_phase()
+    grad_phase()
     kern, launches = main_path_phase()
+    tkern, batch, train_launches, train_result = train_phase()
+    launches.update(train_launches)
     frames, entries = timing_phase(kern, launches, errs)
+    del kern
+    train_times, knn_entries = train_timing_phase(tkern, batch, train_result,
+                                                  launches, knn_errs)
+    entries += knn_entries
     print(f"summary: build {build_s:.2f} s, total {time.perf_counter() - t0:.2f} s, "
-          f"frames/s {json.dumps({k: round(v, 1) for k, v in frames.items()})}")
+          f"frames/s {json.dumps({k: round(v, 1) for k, v in frames.items()})}, "
+          f"train {json.dumps({k: round(v, 3) for k, v in train_times.items()})}")
     print(smi)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

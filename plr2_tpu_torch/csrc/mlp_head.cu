@@ -1,7 +1,9 @@
 // Pose-head ladder: out = L4(relu(L3(relu(L2(relu(L1(x))))))), Li(h) = h Wi^T + bi.
 //
 // Replaces the TPU kernel plr2_tpu/ops/pallas_fusion.py `fused_mlp_head`
-// (`_mlp_kernel`), forward only. Semantics as there: products accumulate in
+// (`_mlp_kernel`). This is the forward; the backward is plain PyTorch
+// (ops/mlp_head.py), as the JAX custom VJP's is plain XLA, so no backward
+// kernel exists on either side. Semantics as there: products accumulate in
 // f32, the bias is added in f32, and after each ReLU the activation is
 // rounded to the input dtype before it feeds the next layer.
 //

@@ -1,7 +1,9 @@
 // PSP decoder stage: out = prelu(conv3x3(upsample2x(x), w) + bias, alpha).
 //
 // Replaces the TPU kernel plr2_tpu/ops/pallas_upsample.py
-// `fused_upconv3x3_prelu` (`_kernel`), forward only. x is NHWC (B, H, W,
+// `fused_upconv3x3_prelu` (`_kernel`). This is the forward; the backward is
+// plain PyTorch (ops/upconv.py), as the JAX custom VJP's is plain XLA, so no
+// backward kernel exists on either side. x is NHWC (B, H, W,
 // Cin), w is HWIO (3, 3, Cin, Cout), out is NHWC (B, 2H, 2W, Cout). The
 // upsample is the half-pixel (align_corners=False) bilinear 2x with clamped
 // edges: output row 2t = 0.25 x[t-1] + 0.75 x[t], row 2t+1 = 0.75 x[t] +

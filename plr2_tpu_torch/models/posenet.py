@@ -8,10 +8,15 @@ reference is `F.linear` over the last axis; the modules keep the
 upstream Conv1d / Linear parameters (lib/network.py names and shapes) so
 upstream-format state dicts load with `strict=True`.
 
-  PoseNet(img (B,H,W,3), cloud (B,N,3), choose (B,N), obj (B,))
+  PoseNet(img (B,H,W,3), cloud (B,N,3), choose (B,N), obj (B,)[, generator])
     -> pred_r (B,N,4), pred_t (B,N,3), pred_c (B,N,1) in (0,1), emb (B,N,32)
   PoseRefineNet(cloud (B,N,3), emb (B,N,32), obj (B,))
     -> pred_r (B,1,4), pred_t (B,1,3)
+
+PoseNet's train mode (`.train()`, the JAX `train=True`) is train-mode
+BatchNorm in the ResNet and the PSP channel dropouts, whose masks come
+from `generator`; the heads keep their kernel, which has a backward
+(`ops.mlp_head.mlp_head` is an autograd Function).
 """
 
 from __future__ import annotations
@@ -89,9 +94,9 @@ class PoseNet(nn.Module):
             setattr(self, f"conv3_{tag}", nn.Conv1d(256, 128, 1))
             setattr(self, f"conv4_{tag}", nn.Conv1d(128, num_obj * od, 1))
 
-    def forward(self, img, cloud, choose, obj):
+    def forward(self, img, cloud, choose, obj, generator=None):
         dt = self.conv1_r.weight.dtype
-        emb = self.cnn(img.to(dt), choose)
+        emb = self.cnn(img.to(dt), choose, generator)
         feat = self.feat(cloud.to(dt), emb)
         b, n, c = feat.shape
         x2d = feat.reshape(b * n, c)

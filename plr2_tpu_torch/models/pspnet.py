@@ -8,7 +8,13 @@ plr2_tpu/models/pspnet.py (the `use_pallas=True` configuration).
   `upconv3x3_prelu` kernel on NHWC activations.
 - The embedding is gathered at `choose` BEFORE the final 1x1 conv and the
   log-softmax over channels (both per pixel, so the gather commutes).
-- Dropout is the identity in eval mode and is left out.
+- Train mode applies the reference's three channel dropouts (rates 0.3,
+  0.15, 0.15 after psp, up_1 and up_2; flax `nn.Dropout` with
+  `broadcast_dims=(1, 2)`, i.e. one keep/drop draw per sample and channel,
+  kept values scaled by 1/(1-p)), with masks drawn from the
+  `torch.Generator` the caller passes in, never from the global RNG. They
+  are the identity in eval mode. `dropout_rates` may be set to zeros to
+  switch them off (the parity tests do).
 
 The trunk runs NCHW tensors in channels_last memory, so the PSP output
 is already NHWC in memory and the permute before the decoder costs no
@@ -66,6 +72,20 @@ class PSPUpsample(nn.Module):
         return fn(x.contiguous(), w, conv.bias, prelu.weight)
 
 
+def channel_dropout(x: torch.Tensor, rate: float,
+                    generator: torch.Generator) -> torch.Tensor:
+    """NHWC x: each (sample, channel) kept with probability 1 - rate and
+    scaled by 1/(1 - rate), or zeroed (flax Dropout, broadcast over H, W)."""
+    if rate <= 0.0:
+        return x
+    if generator is None:
+        raise ValueError("train-mode dropout needs an explicit torch.Generator")
+    keep_prob = 1.0 - rate
+    u = torch.rand((x.shape[0], 1, 1, x.shape[3]), generator=generator,
+                   device=generator.device).to(x.device)
+    return torch.where(u < keep_prob, x / keep_prob, torch.zeros_like(x))
+
+
 class PSPNet(nn.Module):
     def __init__(self, emb_dim: int = 32, sizes: Sequence[int] = (1, 2, 3, 6),
                  psp_out: int = 1024, use_kernels: bool = True):
@@ -77,13 +97,19 @@ class PSPNet(nn.Module):
         self.up_3 = PSPUpsample(64, 64, use_kernels)
         self.final = nn.Sequential(nn.Conv2d(64, emb_dim, 1),
                                    nn.LogSoftmax(dim=1))
+        self.dropout_rates = (0.3, 0.15, 0.15)  # drop_1, drop_2a, drop_2b
 
-    def forward(self, img, choose):
+    def forward(self, img, choose, generator=None):
         """img (B, H, W, 3) NHWC; choose (B, N) flat pixel indices ->
-        the gathered log-softmax embedding (B, N, emb_dim)."""
+        the gathered log-softmax embedding (B, N, emb_dim). `generator`
+        draws the dropout masks in train mode."""
         x = img.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
         p = self.psp(self.feats(x)).permute(0, 2, 3, 1)  # NHWC
-        p = self.up_3(self.up_2(self.up_1(p)))
+        for up, rate in zip((self.up_1, self.up_2, self.up_3),
+                            self.dropout_rates):
+            if self.training:
+                p = channel_dropout(p, rate, generator)
+            p = up(p)
         b, h, w, c = p.shape
         g = torch.gather(p.reshape(b, h * w, c), 1,
                          choose.long().unsqueeze(-1).expand(b, -1, c))
@@ -99,5 +125,5 @@ class ModifiedResnet(nn.Module):
         super().__init__()
         self.model = PSPNet(emb_dim=emb_dim, use_kernels=use_kernels)
 
-    def forward(self, img, choose):
-        return self.model(img, choose)
+    def forward(self, img, choose, generator=None):
+        return self.model(img, choose, generator)

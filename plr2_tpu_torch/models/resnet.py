@@ -3,16 +3,47 @@ plr2_tpu/models/resnet.py.
 
 Deep 3-conv stem, PyTorch-semantics max pool (3x3, stride 2, padding 1),
 layer3/layer4 dilated 2/4 with stride 1: output stride 8, 512 channels.
-BatchNorm runs in eval mode. Plain `F.conv2d` via nn.Conv2d: these are
-XLA convolutions in the JAX package, not TPU kernels. Attribute names
-follow the upstream pspnet-pytorch extractor (conv1..3, bn1..3,
-layer{1..4}.{0,1}.{conv,bn}{1,2}, downsample.{0,1}).
+BatchNorm (`BatchNorm2d` below) has flax's train-mode semantics. Plain
+`F.conv2d` via nn.Conv2d: these are XLA convolutions in the JAX package,
+not TPU kernels. Attribute names follow the upstream pspnet-pytorch
+extractor (conv1..3, bn1..3, layer{1..4}.{0,1}.{conv,bn}{1,2},
+downsample.{0,1}).
 """
 
 from __future__ import annotations
 
+import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """`nn.BatchNorm2d` whose train mode is flax's `nn.BatchNorm(momentum=
+    0.9, epsilon=1e-5)` (plr2_tpu/models/resnet.py:40-46, :85-90).
+
+    Train mode normalises with the batch mean and the biased batch variance
+    (as torch does) and updates the running statistics itself, as flax
+    does: ``0.9 * old + 0.1 * batch`` with the BIASED variance
+    ``max(0, E[x^2] - E[x]^2)``. torch's own update uses the unbiased
+    variance, a relative gap of 1/(n-1) at n = B*H*W values per channel.
+    Eval mode is torch's.
+    """
+
+    def __init__(self, num_features: int):
+        super().__init__(num_features, eps=1e-5, momentum=0.1)
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        with torch.no_grad():
+            xf = x.to(torch.promote_types(x.dtype, torch.float32))
+            mean = xf.mean((0, 2, 3))
+            var = torch.clamp((xf * xf).mean((0, 2, 3)) - mean * mean, min=0.0)
+            self.running_mean.mul_(0.9).add_(0.1 * mean)
+            self.running_var.mul_(0.9).add_(0.1 * var)
+            self.num_batches_tracked.add_(1)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
+                            self.eps)
 
 
 class BasicBlock(nn.Module):
@@ -21,13 +52,13 @@ class BasicBlock(nn.Module):
         super().__init__()
         self.conv1 = nn.Conv2d(inplanes, planes, 3, stride, dilation, dilation,
                                bias=False)
-        self.bn1 = nn.BatchNorm2d(planes)
+        self.bn1 = BatchNorm2d(planes)
         self.conv2 = nn.Conv2d(planes, planes, 3, 1, dilation, dilation,
                                bias=False)
-        self.bn2 = nn.BatchNorm2d(planes)
+        self.bn2 = BatchNorm2d(planes)
         self.downsample = (nn.Sequential(
             nn.Conv2d(inplanes, planes, 1, stride, bias=False),
-            nn.BatchNorm2d(planes)) if downsample else None)
+            BatchNorm2d(planes)) if downsample else None)
 
     def forward(self, x):
         r = x if self.downsample is None else self.downsample(x)
@@ -41,11 +72,11 @@ class DilatedResNet18(nn.Module):
     def __init__(self):
         super().__init__()
         self.conv1 = nn.Conv2d(3, 64, 3, 2, 1, bias=False)
-        self.bn1 = nn.BatchNorm2d(64)
+        self.bn1 = BatchNorm2d(64)
         self.conv2 = nn.Conv2d(64, 64, 3, 1, 1, bias=False)
-        self.bn2 = nn.BatchNorm2d(64)
+        self.bn2 = BatchNorm2d(64)
         self.conv3 = nn.Conv2d(64, 128, 3, 1, 1, bias=False)
-        self.bn3 = nn.BatchNorm2d(128)
+        self.bn3 = BatchNorm2d(128)
         inplanes = 128
         for li, (planes, stride, dilation) in enumerate(
                 ((64, 1, 1), (128, 2, 1), (256, 1, 2), (512, 1, 4)), start=1):

@@ -1,16 +1,22 @@
 """Hand-written CUDA kernels of the port, each beside its plain version:
-`ops.mlp_head` (pose-head ladder) and `ops.upconv` (PSP decoder stage)."""
+`ops.mlp_head` (pose-head ladder), `ops.upconv` (PSP decoder stage) and
+`ops.knn` (the ADD-S nearest-neighbour match: `nn_match`, `nn_argmin`,
+`nn_match_mxu`)."""
 
-from plr2_tpu_torch.ops import mlp_head, upconv
+from plr2_tpu_torch.ops import knn, mlp_head, upconv
 
 _KERNEL_MODULES = {"mlp_head": mlp_head, "upconv3x3_prelu": upconv}
 
 
 def launch_counts() -> dict:
     """Kernel launches since the last reset, by kernel name."""
-    return {name: mod.launches for name, mod in _KERNEL_MODULES.items()}
+    counts = {name: mod.launches for name, mod in _KERNEL_MODULES.items()}
+    counts.update(knn.launches)
+    return counts
 
 
 def reset_launch_counts() -> None:
     for mod in _KERNEL_MODULES.values():
         mod.launches = 0
+    for name in knn.launches:
+        knn.launches[name] = 0

@@ -40,6 +40,9 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "plr2_mlp_head": [_I] + [_P] * 10 + [_I] * 6 + [_P],
     "plr2_upconv3x3_prelu": [_I] + [_P] * 5 + [_I] * 5 + [_P],
+    "plr2_nn_argmin": [_P] * 3 + [_I] * 3 + [_P],
+    "plr2_nn_match": [_P] * 3 + [_I] * 3 + [_P],
+    "plr2_nn_match_mxu": [_P] * 3 + [_I] * 3 + [_P],
 }
 
 _lib = None

@@ -1,18 +1,24 @@
 """The pose-head ladder x -> 640 -> 256 -> 128 -> K as one CUDA kernel.
 
 Replaces the TPU kernel ``plr2_tpu/ops/pallas_fusion.py``
-``fused_mlp_head`` (forward only). Source: ``csrc/mlp_head.cu``, whose
-header says what bounds it on the H100 (operations) and how it is built.
+``fused_mlp_head``. Source: ``csrc/mlp_head.cu``, whose header says what
+bounds it on the H100 (operations) and how it is built.
 
 Weights are in the torch ``Linear`` / ``Conv1d`` layout, (out, in): the
 PoseNet heads hold ``Conv1d`` weights of shape (out, in, 1), viewed as
 (out, in) without a copy. (The JAX kernel takes (in, out).)
 
-``mlp_head`` launches the kernel for CUDA tensors and raises on anything
-the kernel does not take; only for CPU tensors does it run
+``mlp_head_forward`` launches the kernel for CUDA tensors and raises on
+anything the kernel does not take; only for CPU tensors does it run
 ``mlp_head_plain``, the same function in plain PyTorch, which repeats the
 kernel's arithmetic: products of working-dtype operands accumulated in
 f32, bias added in f32, ReLU, rounding to the input dtype between layers.
+
+``mlp_head`` is that forward as a ``torch.autograd.Function``. Its backward
+is plain PyTorch on every device, the port of the JAX custom VJP's
+``_bwd`` (``pallas_fusion.py:82-102``): it rematerialises h1-h3 and runs
+matmuls, as the JAX package does with plain XLA. The TPU kernel has no
+backward kernel, so none is owed here.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ from __future__ import annotations
 from typing import Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from plr2_tpu_torch.ops import _build
 
@@ -31,9 +38,10 @@ launches = 0
 def mlp_head_plain(x: torch.Tensor, params: Params) -> torch.Tensor:
     """x (P, C) -> (P, K) through 4 (w (out, in), b (out,)) layers."""
     dt = x.dtype
+    acc = torch.promote_types(dt, torch.float32)  # f32, or f64 for f64 input
     h = x
     for i, (w, b) in enumerate(params):
-        h = torch.matmul(h.float(), w.float().t()) + b.float()
+        h = torch.matmul(h.to(acc), w.to(acc).t()) + b.to(acc)
         if i < len(params) - 1:
             h = torch.relu(h)
         h = h.to(dt)
@@ -59,7 +67,7 @@ def _check(x: torch.Tensor, params: Params) -> None:
         c_in = w.shape[0]
 
 
-def mlp_head(x: torch.Tensor, params: Params) -> torch.Tensor:
+def mlp_head_forward(x: torch.Tensor, params: Params) -> torch.Tensor:
     """The ladder through the CUDA kernel (plain PyTorch for CPU tensors)."""
     global launches
     if x.device.type == "cpu":
@@ -76,6 +84,38 @@ def mlp_head(x: torch.Tensor, params: Params) -> torch.Tensor:
     _build.check(err, "mlp_head")
     launches += 1
     return out
+
+
+class _MLPHead(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, *flat):
+        params = list(zip(flat[0::2], flat[1::2]))
+        ctx.save_for_backward(x, *flat)
+        return mlp_head_forward(x, params)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, *flat = ctx.saved_tensors
+        (w1, b1), (w2, b2), (w3, b3), (w4, b4) = zip(flat[0::2], flat[1::2])
+        # weights are (out, in): h = x w^T + b; dW = g^T h_in; dh_in = g W
+        h1 = torch.relu(F.linear(x, w1, b1))
+        h2 = torch.relu(F.linear(h1, w2, b2))
+        h3 = torch.relu(F.linear(h2, w3, b3))
+        g = g.to(x.dtype)
+        grads = [g.t() @ h3, g.sum(0)]
+        g3 = (g @ w4) * (h3 > 0)
+        grads = [g3.t() @ h2, g3.sum(0)] + grads
+        g2 = (g3 @ w3) * (h2 > 0)
+        grads = [g2.t() @ h1, g2.sum(0)] + grads
+        g1 = (g2 @ w2) * (h1 > 0)
+        grads = [g1.t() @ x, g1.sum(0)] + grads
+        dx = g1 @ w1 if ctx.needs_input_grad[0] else None
+        return (dx, *grads)
+
+
+def mlp_head(x: torch.Tensor, params: Params) -> torch.Tensor:
+    """`mlp_head_forward` with the JAX package's backward (see above)."""
+    return _MLPHead.apply(x, *(t for wb in params for t in wb))
 
 
 def flops(rows: int, widths: Sequence[int]) -> int:

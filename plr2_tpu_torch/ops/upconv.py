@@ -1,17 +1,23 @@
 """PSP decoder stage: 2x bilinear upsample + 3x3 conv + bias + PReLU.
 
 Replaces the TPU kernel ``plr2_tpu/ops/pallas_upsample.py``
-``fused_upconv3x3_prelu`` (forward only). Source: ``csrc/upconv.cu``,
+``fused_upconv3x3_prelu``. Source: ``csrc/upconv.cu``,
 whose header says what bounds it on the H100 (operations) and what its
 design does about it. Same signature as the JAX kernel: x NHWC
 (B, H, W, Cin), w HWIO (3, 3, Cin, Cout), bias (Cout,), alpha a
 one-element tensor; returns (B, 2H, 2W, Cout).
 
-``upconv3x3_prelu`` launches the kernel for CUDA tensors and raises on
-anything the kernel does not take; only for CPU tensors does it run
-``upconv3x3_prelu_plain``, which repeats the kernel's arithmetic: the
+``upconv3x3_prelu_forward`` launches the kernel for CUDA tensors and
+raises on anything the kernel does not take; only for CPU tensors does it
+run ``upconv3x3_prelu_plain``, which repeats the kernel's arithmetic: the
 half-pixel upsample computed in f32 and rounded to the input dtype, the
 conv accumulated in f32, bias and PReLU in f32, one rounding at the end.
+
+``upconv3x3_prelu`` is that forward as a ``torch.autograd.Function``. Its
+backward recomputes ``upconv3x3_prelu_plain`` under autograd and returns
+its gradients, as the JAX custom VJP's ``_bwd`` (``pallas_upsample.py:
+300-304``) takes the VJP of the plain XLA composition: the TPU kernel has
+no backward kernel, so none is owed here.
 """
 
 from __future__ import annotations
@@ -38,16 +44,19 @@ def _upsample2x_axis(v: torch.Tensor, dim: int) -> torch.Tensor:
 
 
 def upsample2x_bilinear(x: torch.Tensor) -> torch.Tensor:
-    """NHWC half-pixel bilinear 2x upsample, in f32 (columns, then rows)."""
-    return _upsample2x_axis(_upsample2x_axis(x.float(), 2), 1)
+    """NHWC half-pixel bilinear 2x upsample, in f32 (f64 for f64 input;
+    columns, then rows)."""
+    x = x.to(torch.promote_types(x.dtype, torch.float32))
+    return _upsample2x_axis(_upsample2x_axis(x, 2), 1)
 
 
 def upconv3x3_prelu_plain(x: torch.Tensor, w: torch.Tensor,
                           bias: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
-    up = upsample2x_bilinear(x).to(x.dtype).float()
-    y = F.conv2d(up.permute(0, 3, 1, 2), w.float().permute(3, 2, 0, 1),
-                 bias.float(), padding=1)
-    y = torch.where(y >= 0, y, alpha.float().reshape(()) * y)
+    acc = torch.promote_types(x.dtype, torch.float32)
+    up = upsample2x_bilinear(x).to(x.dtype).to(acc)
+    y = F.conv2d(up.permute(0, 3, 1, 2), w.to(acc).permute(3, 2, 0, 1),
+                 bias.to(acc), padding=1)
+    y = torch.where(y >= 0, y, alpha.to(acc).reshape(()) * y)
     return y.permute(0, 2, 3, 1).to(x.dtype).contiguous()
 
 
@@ -66,8 +75,9 @@ def _check(x, w, bias, alpha) -> None:
                          f"{tuple(alpha.shape)}")
 
 
-def upconv3x3_prelu(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
-                    alpha: torch.Tensor) -> torch.Tensor:
+def upconv3x3_prelu_forward(x: torch.Tensor, w: torch.Tensor,
+                            bias: torch.Tensor,
+                            alpha: torch.Tensor) -> torch.Tensor:
     """The stage through the CUDA kernel (plain PyTorch for CPU tensors)."""
     global launches
     if x.device.type == "cpu":
@@ -83,6 +93,29 @@ def upconv3x3_prelu(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     _build.check(err, "upconv3x3_prelu")
     launches += 1
     return out
+
+
+class _UpConv(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, bias, alpha):
+        ctx.save_for_backward(x, w, bias, alpha)
+        return upconv3x3_prelu_forward(x, w, bias, alpha)
+
+    @staticmethod
+    def backward(ctx, g):
+        inputs = [t.detach().requires_grad_(need) for t, need in
+                  zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        wanted = [t for t in inputs if t.requires_grad]
+        with torch.enable_grad():
+            out = upconv3x3_prelu_plain(*inputs)
+            grads = iter(torch.autograd.grad(out, wanted, g))
+        return tuple(next(grads) if t.requires_grad else None for t in inputs)
+
+
+def upconv3x3_prelu(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+                    alpha: torch.Tensor) -> torch.Tensor:
+    """`upconv3x3_prelu_forward` with the JAX package's backward (above)."""
+    return _UpConv.apply(x, w, bias, alpha)
 
 
 def flops(b: int, h: int, w: int, cin: int, cout: int) -> int:

@@ -115,14 +115,15 @@ def test_initial_pose_first_index_wins_ties():
 
 
 def test_import_hygiene_no_jax_no_reference_package():
-    """The port (and chip_smoke.py) import neither jax nor flax nor any
-    plr2_tpu module, and read no .msgpack checkpoint."""
+    """The port (every module of it) and chip_smoke.py import neither jax
+    nor flax nor any plr2_tpu module, and read no .msgpack checkpoint."""
     code = (
         "import sys\n"
         "for m in ('jax', 'flax', 'plr2_tpu'):\n"
         "    sys.modules[m] = None\n"
-        "import plr2_tpu_torch, plr2_tpu_torch.ops, plr2_tpu_torch.models\n"
-        "import plr2_tpu_torch.refine, plr2_tpu_torch.geometry, chip_smoke\n"
+        "import importlib, pkgutil, plr2_tpu_torch, chip_smoke\n"
+        "for m in pkgutil.walk_packages(plr2_tpu_torch.__path__, 'plr2_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'plr2_tpu') and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"
