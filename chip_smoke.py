@@ -32,6 +32,17 @@ non-zero, and there is no CPU fallback:
    main-path shapes beside the plain version, one PyTorch library call of
    the same function, and the bound of the H100; train-step ms and
    samples/s of both stages; a profiler table of a stage-1 step.
+9. tf32: the f32 estimate runs with TF32 off whatever the caller set (a
+   hook on a PoseNet convolution reads the flags); then the f32 PoseNet at
+   batch 128 with cuDNN TF32 on and off: ms and the best-hypothesis pose
+   gap, the size of what the estimate's own switch closes.
+10. quant: the int8 pose-head ladder (quantized_mlp_head) on the seeded
+   PoseNet's three heads and fused 1408-d features at batch 8 (8000 rows):
+   launch counts of the path, the kernel against its plain version in both
+   rounding modes (exact), determinism per seed, accuracy against the f32
+   head kernel (tests/test_quant.py's bounds), a small ladder of another
+   depth at 40 rows; times at batch 8 and 128 beside the f32 and bf16 head
+   kernels, the plain version, a torch._int_mm chain and the bound.
 
 The second-to-last line is a JSON object with one entry per kernel and
 dtype; the last line is {"ok": true, "device": {...}}.
@@ -60,8 +71,8 @@ STAGES = {"up_1": (20, 20, 1024, 256), "up_2": (40, 40, 256, 64),
 HEAD_WIDTHS = (1408, 640, 256, 128)
 HEAD_OUT = {"r": 4, "t": 3, "c": 1}
 
-# H100 SXM published dense peaks (NVIDIA data sheet, 700 W)
-PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12}
+# H100 SXM published dense peaks (NVIDIA data sheet, 700 W); int8 in ops/s
+PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12, "int8": 1979e12}
 HBM_BYTES_PER_S = 3.35e12
 
 # kernel vs plain version on the card: |k - p| <= atol + rtol |p|. f32:
@@ -96,6 +107,17 @@ MXU_TIE = 1e-6
 # largest entry on the heads); BN statistics as |d| <= atol + rtol |ref|
 STEP_TOL = {"loss": 1e-5, "grad_l2": 1e-3, "bn": (1e-5, 1e-4)}
 
+# int8 head ladder: kernel vs plain version must agree exactly (the same f32
+# steps, each correctly rounded, and exact int32 sums); accuracy against the
+# f32 head kernel as tests/test_quant.py:47-49 bounds it
+QUANT_SEED = 1234
+QUANT_ACC = {"median": 0.05, "mean": 0.15}
+QUANT_SMALL, QUANT_SMALL_ROWS = (128, 64, 32, 16), 40  # tests/test_quant.py
+# a unit quaternion after the estimate: f32 exact to rounding; bf16 is
+# normalised and composed in bf16 as in JAX and not renormalised after the
+# last composition, so each component carries a few bf16 ulps (3.9e-3)
+QUAT_NORM_TOL = {"f32": 1e-5, "bf16": 3e-2}
+
 DEVICE = "cuda"
 
 SOURCES = {"mlp_head": ("plr2_tpu_torch/csrc/mlp_head.cu",
@@ -105,8 +127,14 @@ SOURCES = {"mlp_head": ("plr2_tpu_torch/csrc/mlp_head.cu",
 KNN_SOURCES = {"nn_match": "plr2_tpu/ops/pallas_knn.py:121",
                "nn_argmin": "plr2_tpu/ops/pallas_knn.py:66",
                "nn_match_mxu": "plr2_tpu/ops/pallas_knn.py:197"}
-NO_KNN = {name: 0 for name in KNN_SOURCES}
+QUANT_SOURCE = ("plr2_tpu_torch/csrc/quant.cu", "plr2_tpu/ops/pallas_quant.py:117")
+KERNEL_NAMES = (*SOURCES, *KNN_SOURCES, "quantized_mlp_head")
 PATH_NAMES = {"f32": "estimate_f32", "bf16": "estimate_bf16"}
+
+
+def counts(**launched):
+    """The launch counts a path should show: `launched`, every other kernel 0."""
+    return {name: launched.get(name, 0) for name in KERNEL_NAMES}
 
 
 def phase(name):
@@ -441,11 +469,9 @@ def train_phase():
           f"against {MESH_POINTS} targets")
     launches, result = {}, {}
     for stage, iters, expect in (
-            ("train_stage1", 0, {"mlp_head": 3, "upconv3x3_prelu": 3,
-                                 "nn_match": 1, "nn_argmin": 0, "nn_match_mxu": 0}),
-            ("train_refine", ITERS, {"mlp_head": 3, "upconv3x3_prelu": 3,
-                                     "nn_match": ITERS, "nn_argmin": 0,
-                                     "nn_match_mxu": 0})):
+            ("train_stage1", 0, counts(mlp_head=3, upconv3x3_prelu=3, nn_match=1)),
+            ("train_refine", ITERS, counts(mlp_head=3, upconv3x3_prelu=3,
+                                           nn_match=ITERS))):
         mod_k, mod_p = ((kern.refiner, plain.refiner) if iters
                         else (kern.posenet, plain.posenet))
         if iters:  # the same state: PoseNet as the kernel run left it
@@ -455,14 +481,14 @@ def train_phase():
         step_p = make_train_step(plain, SYM_LIST, W, LR, refine_iterations=iters)
         reset_launch_counts()
         met_k = run_step(step_k, batch, seed=11)
-        counts = launch_counts()
-        print(f"  launches in one {stage} step: {counts}")
-        if counts != expect:
-            raise AssertionError(f"{stage}: expected launches {expect}, got {counts}")
+        seen = launch_counts()
+        print(f"  launches in one {stage} step: {seen}")
+        if seen != expect:
+            raise AssertionError(f"{stage}: expected launches {expect}, got {seen}")
         met_p = run_step(step_p, batch, seed=11)
-        if launch_counts() != counts:
+        if launch_counts() != seen:
             raise AssertionError(f"{stage}: the plain step launched a kernel")
-        launches[stage] = counts
+        launches[stage] = seen
         result[stage] = compare_steps(stage, mod_k, mod_p, step_k, step_p,
                                       met_k, met_p, before)
         result[stage]["step"] = step_k
@@ -529,8 +555,8 @@ def check_pose(dt_name, est):
         raise AssertionError(f"estimate {dt_name}: non-finite output")
     if q.shape != (BATCH, 4) or t.shape != (BATCH, 3):
         raise AssertionError(f"estimate {dt_name}: shapes {q.shape} {t.shape}")
-    norm_err = float((q.norm(dim=-1) - 1).abs().max())
-    if norm_err > 1e-5:
+    norm_err = float((q.float().norm(dim=-1) - 1).abs().max())
+    if norm_err > QUAT_NORM_TOL[dt_name]:
         raise AssertionError(f"estimate {dt_name}: |q| off 1 by {norm_err}")
     print(f"  estimate {dt_name}: finite, max ||q|-1| {norm_err:.2e}")
 
@@ -551,15 +577,15 @@ def main_path_phase():
         reset_launch_counts()
         est = kern.estimate(*inputs, refine_iterations=ITERS)
         torch.cuda.synchronize()
-        counts = launch_counts()
-        print(f"  launches in one estimate ({dt_name}): {counts}")
-        if counts != {"mlp_head": 3, "upconv3x3_prelu": 3, **NO_KNN}:
+        seen = launch_counts()
+        print(f"  launches in one estimate ({dt_name}): {seen}")
+        if seen != counts(mlp_head=3, upconv3x3_prelu=3):
             raise AssertionError("expected 3 mlp_head + 3 upconv3x3_prelu "
-                                 f"launches per PoseNet forward, got {counts}")
-        launches[dt_name] = counts
+                                 f"launches per PoseNet forward, got {seen}")
+        launches[dt_name] = seen
         check_pose(dt_name, est)
         ref = plain.estimate(*inputs, refine_iterations=ITERS)
-        if launch_counts() != counts:
+        if launch_counts() != seen:
             raise AssertionError("the plain pipeline launched a kernel")
         # which hypothesis each run picked, from the same PoseNet outputs
         with torch.no_grad():
@@ -573,7 +599,8 @@ def main_path_phase():
         if gap > CONF_TIE[dt_name]:
             raise AssertionError(f"estimate {dt_name}: runs picked hypotheses "
                                  f"whose confidences differ by {gap}")
-        dq = float((est.quat - ref.quat)[same].abs().max()) if same.any() else 0.0
+        dq = float((est.quat.float() - ref.quat.float())[same].abs().max()) \
+            if same.any() else 0.0
         dtr = float((est.trans - ref.trans)[same].abs().max()) if same.any() else 0.0
         ok = dq <= POSE_TOL[dt_name] and dtr <= POSE_TOL[dt_name]
         print(f"  estimate {dt_name} kernels vs plain: {int(same.sum())}/{BATCH} "
@@ -769,6 +796,257 @@ def train_timing_phase(kern, batch, result, launches, errs):
     return times, entries
 
 
+def _tf32_flags():
+    return (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+
+
+def _set_tf32(cudnn, matmul):
+    torch.backends.cudnn.allow_tf32 = cudnn
+    torch.backends.cuda.matmul.allow_tf32 = matmul
+
+
+@phase("tf32")
+def tf32_phase(kern):
+    """The f32 estimate switches TF32 off itself; then the gap that switch
+    closes: the f32 PoseNet at batch 128 with cuDNN TF32 on and off (the
+    flags the process had set), its time and its best-hypothesis pose."""
+    from plr2_tpu_torch.refine import initial_pose
+    if kern.dtype != torch.float32:
+        raise AssertionError("tf32 phase needs the f32 pipeline")
+    inputs = main_inputs(BATCH)
+    conv = next(m for m in kern.posenet.modules() if isinstance(m, torch.nn.Conv2d))
+    seen = []
+    hook = conv.register_forward_pre_hook(lambda m, a: seen.append(_tf32_flags()))
+    est = {}
+    try:
+        for caller in (False, True):
+            _set_tf32(caller, caller)
+            est[caller] = kern.estimate(*inputs, refine_iterations=ITERS)
+            if _tf32_flags() != (caller, caller):
+                raise AssertionError("estimate did not restore the TF32 flags")
+    finally:
+        hook.remove()
+        _set_tf32(False, False)
+    gap = max(float((est[True].quat - est[False].quat).abs().max()),
+              float((est[True].trans - est[False].trans).abs().max()))
+    print(f"  f32 estimate with the caller's TF32 flags on: the convolutions "
+          f"saw {sorted(set(seen))} (must be (False, False) only); pose "
+          f"against flags off differs by {gap:.3e}")
+    if set(seen) != {(False, False)}:
+        raise AssertionError(f"the f32 estimate ran with TF32 flags {seen}")
+
+    inputs = main_inputs(BATCH_BIG)
+    out = {}
+    for on in (False, True):
+        torch.backends.cudnn.allow_tf32 = on
+        try:
+            with torch.no_grad():
+                ms = time_ms(lambda: kern.posenet(*inputs), 3, warmup=1)
+                pred_r, pred_t, pred_c, _ = kern.posenet(*inputs)
+                q, t = initial_pose(pred_r, pred_t, pred_c, inputs[1])
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+        out[on] = (ms, q, t, pred_c[..., 0].argmax(-1), pred_c)
+    same = out[True][3] == out[False][3]
+    dq = float((out[True][1] - out[False][1])[same].abs().max()) if same.any() else 0.0
+    dt = float((out[True][2] - out[False][2])[same].abs().max()) if same.any() else 0.0
+    dc = float((out[True][4] - out[False][4]).abs().max())
+    print(f"  f32 PoseNet batch {BATCH_BIG}: cuDNN TF32 off {out[False][0]:.3f} ms, "
+          f"on {out[True][0]:.3f} ms; {int(same.sum())}/{BATCH_BIG} frames pick "
+          f"the same hypothesis, on those max |dq| {dq:.3e} max |dt| {dt:.3e}; "
+          f"max |d confidence| {dc:.3e}")
+    return {"off_ms": out[False][0], "on_ms": out[True][0], "same": int(same.sum()),
+            "dq": dq, "dt": dt, "dconf": dc}
+
+
+def head_features(pipe, batch):
+    """The fused per-point features PoseNet feeds its heads, as
+    `PoseNet.forward` computes them: (batch * NUM_POINTS, 1408) f32."""
+    img, cloud, choose, _ = main_inputs(batch)
+    with torch.no_grad():
+        feat = pipe.posenet.feat(cloud, pipe.posenet.cnn(img, choose))
+    return feat.reshape(-1, feat.shape[-1]).contiguous()
+
+
+def head_layers(pipe, tag):
+    """Head `tag`'s four (w (out, in), b) f32 layers of the seeded PoseNet."""
+    layers = [getattr(pipe.posenet, f"conv{i}_{tag}") for i in range(1, 5)]
+    return [(m.weight.detach().reshape(m.weight.shape[0], -1).contiguous(),
+             m.bias.detach()) for m in layers]
+
+
+def int_mm_library(x, qparams):
+    """The int8 ladder as PyTorch library calls: torch._int_mm (cuBLASLt) on
+    int8 codes and weights padded to 8 output columns, the quantise and
+    dequantise as elementwise torch ops. A yardstick of speed only, never on
+    the port's path."""
+    padded = []
+    for w, s, b in qparams:
+        n, k = w.shape
+        wp = torch.zeros(((n + 7) // 8 * 8, k), dtype=torch.int8, device=w.device)
+        wp[:n] = w
+        padded.append((wp.t(), s, b, n))  # (K, N8), column-major
+
+    def run():
+        h = x
+        for i, (wt, s, b, n) in enumerate(padded):
+            a = torch.clamp(h.abs().amax(1, keepdim=True) / 127.0, min=1e-12)
+            codes = torch.clamp(torch.round(h / a), -127, 127).to(torch.int8)
+            h = torch._int_mm(codes, wt)[:, :n].float() * a * s + b
+            if i < len(padded) - 1:
+                h = torch.relu(h)
+        return h
+    return run
+
+
+@phase("quant")
+def quant_phase():
+    """The int8 head ladder on the seeded PoseNet's heads and features."""
+    from plr2_tpu_torch import DenseFusionPipeline
+    from plr2_tpu_torch.ops import launch_counts, mlp_head, quant, reset_launch_counts
+    pipe = DenseFusionPipeline(NUM_POINTS, NUM_OBJ, device=DEVICE, seed=0)
+    x = head_features(pipe, BATCH)
+    heads = {tag: head_layers(pipe, tag) for tag in HEAD_OUT}
+    qheads = {tag: quant.quantize_weights(layers) for tag, layers in heads.items()}
+    print(f"  features {tuple(x.shape)}; heads "
+          f"{[tuple(w.shape) for w, _, _ in qheads['r']]} int8 (r), K = "
+          f"{[NUM_OBJ * od for od in HEAD_OUT.values()]}")
+
+    # the path: the three ladders with the op's defaults (seed 0, stochastic)
+    reset_launch_counts()
+    outs = {tag: quant.quantized_mlp_head(x, q) for tag, q in qheads.items()}
+    torch.cuda.synchronize()
+    seen = launch_counts()
+    print(f"  launches in one int8 head forward: {seen}")
+    if seen != counts(quantized_mlp_head=3):
+        raise AssertionError(f"expected 3 quantized_mlp_head launches, got {seen}")
+    for tag, out in outs.items():
+        if out.shape != (x.shape[0], NUM_OBJ * HEAD_OUT[tag]) or \
+                not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"int8 head {tag}: shape {tuple(out.shape)} or "
+                                 "non-finite values")
+
+    # 1. kernel against its plain version, both rounding modes, exact
+    max_err, results = 0.0, {}
+    for stochastic in (False, True):
+        for tag, q in qheads.items():
+            got = quant.quantized_mlp_head(x, q, QUANT_SEED, stochastic)
+            torch.cuda.synchronize()
+            ref = quant.quantized_mlp_head_plain(x, q, QUANT_SEED, stochastic)
+            n_diff = int((got != ref).sum())
+            err = float((got - ref).abs().max())
+            max_err = max(max_err, err)
+            results[(tag, stochastic)] = got
+            print(f"  quantized_mlp_head {tag} stochastic={stochastic} "
+                  f"{tuple(x.shape)}->{got.shape[1]}: {n_diff} of {got.numel()} "
+                  f"outputs differ from the plain version, max |d| {err:.3e} "
+                  f"(exact: must be 0) {'ok' if n_diff == 0 else 'FAIL'}")
+            if n_diff:
+                raise AssertionError("quantized_mlp_head disagrees with its "
+                                     "plain version")
+    # 2. the same seed twice gives the same draws, another seed others
+    for tag, q in qheads.items():
+        again = quant.quantized_mlp_head(x, q, QUANT_SEED, True)
+        other = quant.quantized_mlp_head(x, q, QUANT_SEED + 1, True)
+        moved = int((other != again).sum())
+        print(f"  stochastic {tag}: seed {QUANT_SEED} twice identical "
+              f"{torch.equal(again, results[(tag, True)])}; seed {QUANT_SEED + 1} "
+              f"moves {moved} of {other.numel()} outputs")
+        if not torch.equal(again, results[(tag, True)]) or moved == 0:
+            raise AssertionError("stochastic rounding is not deterministic per seed")
+    # 3. accuracy against the f32 head kernel (tests/test_quant.py's bounds)
+    for tag, layers in heads.items():
+        ref = mlp_head.mlp_head(x, layers)
+        denom = torch.maximum(ref.abs(), ref.abs().mean())
+        for stochastic in (False, True):
+            rel = (results[(tag, stochastic)] - ref).abs() / denom
+            med, mean = float(rel.median()), float(rel.mean())
+            ok = med < QUANT_ACC["median"] and mean < QUANT_ACC["mean"]
+            print(f"  int8 vs f32 head kernel {tag} stochastic={stochastic}: "
+                  f"median rel err {med:.4f} (< {QUANT_ACC['median']}), mean "
+                  f"{mean:.4f} (< {QUANT_ACC['mean']}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError("int8 head too far from the f32 head")
+    # 4. another depth and row count: tests/test_quant.py's ladder, 40 rows
+    gen = torch.Generator().manual_seed(8)
+    widths = QUANT_SMALL
+    small = quant.quantize_weights(
+        [(_rand((o, i), gen, i ** -0.5), _rand((o,), gen, 0.05))
+         for i, o in zip(widths[:-1], widths[1:])])
+    xs = _rand((QUANT_SMALL_ROWS, widths[0]), gen)
+    for stochastic in (False, True):
+        got = quant.quantized_mlp_head(xs, small, QUANT_SEED, stochastic)
+        torch.cuda.synchronize()
+        ref = quant.quantized_mlp_head_plain(xs, small, QUANT_SEED, stochastic)
+        n_diff = int((got != ref).sum())
+        print(f"  quantized_mlp_head {widths} at {QUANT_SMALL_ROWS} rows, "
+              f"stochastic={stochastic}: {n_diff} outputs differ (exact) "
+              f"{'ok' if n_diff == 0 else 'FAIL'}")
+        if n_diff:
+            raise AssertionError("quantized_mlp_head disagrees with its plain "
+                                 "version on the small ladder")
+    return pipe, heads, qheads, seen, max_err
+
+
+@phase("quant timing")
+def quant_timing_phase(pipe, heads, qheads, seen, max_err):
+    """Per forward (three ladders): the int8 kernel, the f32 and bf16 head
+    kernels on the same rows, the plain version, a torch._int_mm chain and
+    the H100's bound, at batch 8 and 128."""
+    from plr2_tpu_torch.ops import mlp_head, quant
+    entry = None
+    for batch in (BATCH, BATCH_BIG):
+        x = head_features(pipe, batch)
+        rows = x.shape[0]
+        t = {"ms": 0.0, "f32_ms": 0.0, "bf16_ms": 0.0, "plain_ms": 0.0,
+             "library_ms": 0.0, "ops": 0, "bytes": 0}
+        per_launch = []
+        xb = x.bfloat16()
+        for tag, q in qheads.items():
+            k = time_ms(lambda: quant.quantized_mlp_head(x, q), 10)
+            per_launch.append(k)
+            t["ms"] += k
+            t["f32_ms"] += time_ms(lambda: mlp_head.mlp_head(x, heads[tag]), 5)
+            hb = [(w.bfloat16(), b.bfloat16()) for w, b in heads[tag]]
+            t["bf16_ms"] += time_ms(lambda: mlp_head.mlp_head(xb, hb), 5)
+            t["library_ms"] += time_ms(int_mm_library(x, q), 10)
+            if batch == BATCH:
+                t["plain_ms"] += time_ms(
+                    lambda: quant.quantized_mlp_head_plain(x, q), 3, warmup=1)
+            widths = (x.shape[1], *(w.shape[0] for w, _, _ in q))
+            t["ops"] += mlp_head.flops(rows, widths)  # int8 multiply-adds x 2
+            t["bytes"] += 4 * rows * (widths[0] + widths[-1]) + sum(
+                w.numel() + 4 * (s.numel() + b.numel()) for w, s, b in q)
+        ops_ms = t["ops"] / PEAK_FLOPS["int8"] * 1e3
+        bytes_ms = t["bytes"] / HBM_BYTES_PER_S * 1e3
+        bound = max(ops_ms, bytes_ms)
+        print(f"  int8 heads batch {batch} ({rows} rows): kernel "
+              f"{' + '.join(f'{v:.3f}' for v in per_launch)} = {t['ms']:.3f} ms "
+              f"per forward ({t['ops'] / t['ms'] / 1e9:.1f} TOP/s); f32 head "
+              f"kernel {t['f32_ms']:.3f} ms, bf16 {t['bf16_ms']:.3f} ms; "
+              f"torch._int_mm chain {t['library_ms']:.3f} ms; "
+              + (f"plain {t['plain_ms']:.3f} ms; " if batch == BATCH else "")
+              + f"bound {bound:.4f} ms ({'bytes' if bytes_ms >= ops_ms else 'operations'}"
+              f": {t['bytes'] / 1e6:.1f} MB, {t['ops'] / 1e9:.1f} G int8 ops)")
+        if batch == BATCH:
+            entry = {
+                "name": "quantized_mlp_head_int8", "route": "cuda",
+                "source": QUANT_SOURCE[0], "replaces": QUANT_SOURCE[1],
+                "launches": seen["quantized_mlp_head"],
+                "launches_by_path": {"estimate_f32": 0, "estimate_bf16": 0,
+                                     "train_stage1": 0, "train_refine": 0,
+                                     "quant": seen["quantized_mlp_head"]},
+                "max_abs_err": max_err, "ms": t["ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": bound,
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                "library_ms": t["library_ms"],
+                "f32_head_ms": t["f32_ms"], "bf16_head_ms": t["bf16_ms"]}
+        del x, xb
+        torch.cuda.empty_cache()
+    return entry
+
+
 def main():
     t0 = time.perf_counter()
     import_port()
@@ -781,13 +1059,18 @@ def main():
     tkern, batch, train_launches, train_result = train_phase()
     launches.update(train_launches)
     frames, entries = timing_phase(kern, launches, errs)
+    tf32 = tf32_phase(kern)
     del kern
     train_times, knn_entries = train_timing_phase(tkern, batch, train_result,
                                                   launches, knn_errs)
     entries += knn_entries
+    del tkern, batch, train_result
+    torch.cuda.empty_cache()
+    entries.append(quant_timing_phase(*quant_phase()))
     print(f"summary: build {build_s:.2f} s, total {time.perf_counter() - t0:.2f} s, "
           f"frames/s {json.dumps({k: round(v, 1) for k, v in frames.items()})}, "
-          f"train {json.dumps({k: round(v, 3) for k, v in train_times.items()})}")
+          f"train {json.dumps({k: round(v, 3) for k, v in train_times.items()})}, "
+          f"tf32 {json.dumps({k: round(v, 6) for k, v in tf32.items()})}")
     print(smi)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

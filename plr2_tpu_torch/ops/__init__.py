@@ -1,11 +1,13 @@
 """Hand-written CUDA kernels of the port, each beside its plain version:
-`ops.mlp_head` (pose-head ladder), `ops.upconv` (PSP decoder stage) and
+`ops.mlp_head` (pose-head ladder), `ops.upconv` (PSP decoder stage),
 `ops.knn` (the ADD-S nearest-neighbour match: `nn_match`, `nn_argmin`,
-`nn_match_mxu`)."""
+`nn_match_mxu`) and `ops.quant` (the int8 pose-head ladder,
+`quantized_mlp_head`)."""
 
-from plr2_tpu_torch.ops import knn, mlp_head, upconv
+from plr2_tpu_torch.ops import knn, mlp_head, quant, upconv
 
-_KERNEL_MODULES = {"mlp_head": mlp_head, "upconv3x3_prelu": upconv}
+_KERNEL_MODULES = {"mlp_head": mlp_head, "upconv3x3_prelu": upconv,
+                   "quantized_mlp_head": quant}
 
 
 def launch_counts() -> dict:

@@ -18,9 +18,10 @@ Two stages, as in the JAX package (reference stage semantics):
   iteration's mean.
 
 Adam is `torch.optim.Adam(lr, betas=(0.9, 0.999), eps=1e-8)`, optax's
-`adam` defaults; the two differ only in rounding. The step runs on the
-pipeline's device ("cuda" unless the pipeline was built with
-device="cpu"); the batch is moved there.
+`adam` defaults; the two differ only in rounding. An f32 pipeline's step
+runs with TF32 off (`pipeline.full_f32`), whatever the caller set. The
+step runs on the pipeline's device ("cuda" unless the pipeline was built
+with device="cpu"); the batch is moved there.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ import torch
 
 from plr2_tpu_torch.losses.add_loss import pose_loss
 from plr2_tpu_torch.losses.refine_loss import refine_loss
+from plr2_tpu_torch.pipeline import full_f32
 
 BATCH_KEYS = ("img", "points", "choose", "target", "model_points", "idx")
 
@@ -96,12 +98,13 @@ class TrainStep:
                  generator: torch.Generator = None) -> Dict[str, torch.Tensor]:
         b = self._batch(batch)
         self.optimizer.zero_grad(set_to_none=True)
-        if self.refine_stage:
-            loss, dis = self._refine_loss(b)
-        else:
-            loss, dis = self._stage1_loss(b, generator)
-        loss.backward()
-        self.optimizer.step()
+        with full_f32(self.pipe.dtype == torch.float32):
+            if self.refine_stage:
+                loss, dis = self._refine_loss(b)
+            else:
+                loss, dis = self._stage1_loss(b, generator)
+            loss.backward()
+            self.optimizer.step()
         self.pipe.posenet.eval()
         self.pipe.refiner.eval()
         return {"loss": loss.detach(), "dis": dis.detach()}

@@ -11,12 +11,21 @@ which is how a run on the card compares the two.
 
 Modes: float32 (reference parity) and, after `cast(torch.bfloat16)`, the
 bf16 fast-inference mode (the counterpart of `cast_variables`): network
-parameters and activations in bf16, while the pose arithmetic (best
-hypothesis, re-centring, composition) stays in f32.
+parameters and activations in bf16. The pose arithmetic (best hypothesis,
+re-centring, composition) sees the dtypes it sees in the JAX pipeline at
+`dtype=bfloat16`: the quaternion is normalised and composed in bf16, the
+translation is f32 (f32 cloud + bf16 offset, torch's promotion as jnp's),
+and `estimate` returns a bf16 `quat` and `confidence`.
+
+The f32 mode runs with TF32 off for both cuDNN convolutions and cuBLAS
+matmuls (`full_f32`), whatever the caller set: cuDNN defaults to TF32,
+which keeps a 10-bit mantissa. The flags are restored on return; the bf16
+mode leaves them as the caller set them.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Mapping, NamedTuple, Optional
 
 import torch
@@ -31,6 +40,23 @@ class PoseEstimate(NamedTuple):
     quat: torch.Tensor        # (B, 4) wxyz, normalized
     trans: torch.Tensor       # (B, 3)
     confidence: torch.Tensor  # (B,) max per-point confidence
+
+
+@contextlib.contextmanager
+def full_f32(enabled: bool):
+    """Within the block, f32 convolutions and matmuls run in full f32 (both
+    TF32 flags off); the caller's flags are restored on exit. A no-op when
+    not `enabled`."""
+    if not enabled:
+        yield
+        return
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    saved = cudnn.allow_tf32, matmul.allow_tf32
+    cudnn.allow_tf32 = matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        cudnn.allow_tf32, matmul.allow_tf32 = saved
 
 
 def resolve_device(device) -> torch.device:
@@ -80,10 +106,9 @@ class DenseFusionPipeline:
     def estimate(self, img, cloud, choose, obj,
                  refine_iterations: int = 2) -> PoseEstimate:
         """(B,H,W,3) crop + (B,N,3) cloud + (B,N) choose + (B,) obj -> pose."""
-        pred_r, pred_t, pred_c, emb = self.posenet(img, cloud, choose, obj)
-        cloud = cloud.float()
-        q0, t0 = initial_pose(pred_r.float(), pred_t.float(), pred_c, cloud)
-        q, t = iterative_refine(self.refiner, cloud, emb, obj, q0, t0,
-                                refine_iterations)
-        return PoseEstimate(quat=q, trans=t,
-                            confidence=pred_c[..., 0].float().amax(-1))
+        with full_f32(self.dtype == torch.float32):
+            pred_r, pred_t, pred_c, emb = self.posenet(img, cloud, choose, obj)
+            q0, t0 = initial_pose(pred_r, pred_t, pred_c, cloud)
+            q, t = iterative_refine(self.refiner, cloud, emb, obj, q0, t0,
+                                    refine_iterations)
+        return PoseEstimate(quat=q, trans=t, confidence=pred_c[..., 0].amax(-1))

@@ -29,10 +29,11 @@ def initial_pose(pred_r, pred_t, pred_c, points) -> Tuple[torch.Tensor, torch.Te
 def iterative_refine(refiner_fn: Callable, cloud, emb, obj, q0, t0,
                      num_iterations: int):
     """`num_iterations` steps of: new_cloud = (cloud - t) @ R(q); (dq, dt) =
-    refiner(new_cloud, emb, obj); (q, t) <- (q, t) composed with (dq, dt)."""
+    refiner(new_cloud, emb, obj); (q, t) <- (q, t) composed with (dq, dt).
+    Each operation sees the dtypes it sees in JAX: with a bf16 refiner, q
+    stays bf16 and t (f32 + bf16) stays f32."""
     q, t = q0, t0
     for _ in range(num_iterations):
         dq, dt = refiner_fn(recenter_points(cloud, q, t), emb, obj)
-        dq = normalize_quaternion(dq[:, 0].to(q.dtype))
-        q, t = compose_pose(q, t, dq, dt[:, 0].to(t.dtype))
+        q, t = compose_pose(q, t, normalize_quaternion(dq[:, 0]), dt[:, 0])
     return q, t

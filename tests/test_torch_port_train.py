@@ -29,7 +29,8 @@ from plr2_tpu_torch.models.pspnet import channel_dropout
 from plr2_tpu_torch.models.resnet import BatchNorm2d
 from plr2_tpu_torch.ops import mlp_head, upconv
 from plr2_tpu_torch.parallel import make_train_step
-from test_torch_port_pipeline import _numpy_variables
+from test_torch_port_pipeline import (_numpy_variables, _set_tf32, _tf32_flags,
+                                      record_tf32_in_first_conv)
 
 torch.set_num_threads(2)
 
@@ -312,6 +313,32 @@ def test_refine_step_matches_jax(steps):
     for name, t in run["pipe"].posenet.state_dict().items():
         if not name.endswith("num_batches_tracked"):
             np.testing.assert_array_equal(t.numpy(), before[name].numpy(), err_msg=name)
+
+
+@pytest.mark.parametrize("iters", [0, ITERS], ids=["stage1", "refine"])
+def test_f32_train_step_turns_tf32_off_and_restores_the_flags(iters):
+    saved = _tf32_flags()
+    pipe = DenseFusionPipeline(16, 3, device="cpu", seed=3)
+    seen = record_tf32_in_first_conv(pipe.posenet)
+    g = torch.Generator().manual_seed(0)
+    batch = dict(img=torch.randn((2, 48, 48, 3), generator=g),
+                 points=torch.randn((2, 16, 3), generator=g) * 0.1,
+                 choose=torch.randint(0, 48 * 48, (2, 16), generator=g),
+                 target=torch.randn((2, 8, 3), generator=g) * 0.05,
+                 model_points=torch.randn((2, 8, 3), generator=g) * 0.05,
+                 idx=torch.tensor([0, 2]))
+    step = make_train_step(pipe, (2,), W, LR, refine_iterations=iters)
+    try:
+        _set_tf32(True, True)
+        met = step(batch, torch.Generator().manual_seed(1))
+        # stage 1 records the conv's forward and backward, the refine stage
+        # its (no-grad) forward
+        assert len(seen) == (1 if iters else 2), seen
+        assert all(s == (False, False) for s in seen), seen
+        assert _tf32_flags() == (True, True)
+        assert torch.isfinite(met["loss"])
+    finally:
+        _set_tf32(*saved)
 
 
 def test_train_step_defaults_to_cuda_and_has_no_cpu_fallback():
