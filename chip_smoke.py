@@ -8,9 +8,14 @@ non-zero, and there is no CPU fallback:
 
 1. device: a CUDA card must be present; prints its name and power limit.
 2. build: compiles plr2_tpu_torch/csrc/*.cu with one nvcc call (into the
-   git-ignored plr2_tpu_torch/_build/) and prints the wall time.
+   git-ignored plr2_tpu_torch/_build/) and prints the wall time; counts
+   the HGMMA (wgmma) instructions of each bf16 tensor-core kernel in the
+   library's SASS (cuobjdump, beside nvcc): a kernel with none fails.
 3. kernels: each CUDA kernel against its plain PyTorch version on the card,
-   in f32 and bf16, at the shapes the main path gives it (batch 8).
+   in f32 and bf16, at the shapes the main path gives it (batch 8); then
+   the bf16 kernels at ragged shapes that fill no tile (heads at 977 and
+   8000 rows, K = 21, 63, 84, and a narrow ladder; decoder stages at odd
+   sizes, Cin 64 and 1024, Cout 24 and 256, batch 1 and 3).
 4. knn: the three ADD-S nearest-neighbour kernels (nn_match, nn_argmin,
    nn_match_mxu) against their plain twins at the stage-1 shape (5
    symmetric samples x 500k queries x 500 targets) and at YCB's 2600-point
@@ -30,7 +35,8 @@ non-zero, and there is no CPU fallback:
    then 3 more stage-1 steps with finite losses.
 8. timing: estimate frames/s at batch 8 and 128, per-kernel times at the
    main-path shapes beside the plain version, one PyTorch library call of
-   the same function, and the bound of the H100; train-step ms and
+   the same function, and the bound of the H100 (bf16 also at batch 128);
+   a profiler table of one bf16 estimate at batch 128; train-step ms and
    samples/s of both stages; a profiler table of a stage-1 step.
 9. tf32: the f32 estimate runs with TF32 off whatever the caller set (a
    hook on a PoseNet convolution reads the flags); then the f32 PoseNet at
@@ -129,6 +135,15 @@ KNN_SOURCES = {"nn_match": "plr2_tpu/ops/pallas_knn.py:121",
                "nn_match_mxu": "plr2_tpu/ops/pallas_knn.py:197"}
 QUANT_SOURCE = ("plr2_tpu_torch/csrc/quant.cu", "plr2_tpu/ops/pallas_quant.py:117")
 KERNEL_NAMES = (*SOURCES, *KNN_SOURCES, "quantized_mlp_head")
+# the bf16 tensor-core kernels, by a substring of their SASS function names
+TC_KERNELS = {"mlp_head": "mlp_head_wgmma_kernel",
+              "upconv3x3_prelu": "upconv_wgmma_kernel"}
+# ragged shapes for the bf16 kernels: head (rows, widths) and decoder
+# (batch, h, w, Cin, Cout); none fills every tile
+RAGGED_HEADS = [(rows, HEAD_WIDTHS + (NUM_OBJ * od,)) for rows in (977, 8000)
+                for od in HEAD_OUT.values()] + [(977, (200, 72, 40, 24, 5))]
+RAGGED_STAGES = [(1, 5, 7, 64, 24), (3, 21, 13, 1024, 256),
+                 (3, 5, 7, 1024, 24), (1, 21, 13, 64, 256)]
 PATH_NAMES = {"f32": "estimate_f32", "bf16": "estimate_bf16"}
 
 
@@ -184,9 +199,34 @@ def build_phase():
     print(f"kernel library {path}: {'built' if log is not None else 'reused'}"
           f", wall {wall:.2f} s")
     for line in (log or "").splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
+        if ("registers" in line or "spill" in line or "Compiling" in line
+                or "C7515" in line):
             print("  ptxas:", line.strip())
+    hgmma = count_hgmma(path, _build.find_nvcc())
+    for name, n in hgmma.items():
+        print(f"  SASS: {n} HGMMA instructions in {name} (bf16 {TC_KERNELS[name]}; "
+              f"must be > 0) {'ok' if n else 'FAIL'}")
+    if not all(hgmma.values()):
+        raise AssertionError(f"a bf16 tensor-core kernel has no HGMMA: {hgmma}")
     return wall
+
+
+def count_hgmma(lib_path, nvcc):
+    """HGMMA instructions per bf16 tensor-core kernel in the library's SASS
+    (the fewest over a kernel's template instantiations)."""
+    cuobjdump = Path(nvcc).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib_path)],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    per_fn, fn = {}, None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            fn = line.split("Function : ")[1].strip()
+            per_fn[fn] = 0
+        elif fn is not None and "HGMMA" in line:
+            per_fn[fn] += 1
+    return {name: min((n for f, n in per_fn.items() if sub in f), default=0)
+            for name, sub in TC_KERNELS.items()}
 
 
 def _rand(shape, gen, scale=1.0, dtype=None):
@@ -256,6 +296,26 @@ def kernels_phase():
                         f"{params[-1][0].shape[0]}", got, ref, TOL[dt_name])
             errs[("mlp_head", dt_name)] = max(
                 errs.get(("mlp_head", dt_name), 0.0), e)
+    for rows, widths in RAGGED_HEADS:
+        x = _rand((rows, widths[0]), gen, 1.0, torch.bfloat16)
+        params = [(_rand((o, i), gen, i ** -0.5, torch.bfloat16),
+                   _rand((o,), gen, 0.1, torch.bfloat16))
+                  for i, o in zip(widths[:-1], widths[1:])]
+        got = mlp_head.mlp_head(x, params)
+        torch.cuda.synchronize()
+        e = compare(f"mlp_head ragged bf16 {rows} rows {widths}", got,
+                    mlp_head.mlp_head_plain(x, params), TOL["bf16"])
+        errs[("mlp_head", "bf16")] = max(errs[("mlp_head", "bf16")], e)
+    for b, h, w, cin, cout in RAGGED_STAGES:
+        x = _rand((b, h, w, cin), gen, 1.0, torch.bfloat16)
+        args = (x, _rand((3, 3, cin, cout), gen, (9 * cin) ** -0.5, torch.bfloat16),
+                _rand((cout,), gen, 0.1, torch.bfloat16),
+                torch.full((1,), 0.25, device=DEVICE, dtype=torch.bfloat16))
+        got = upconv.upconv3x3_prelu(*args)
+        torch.cuda.synchronize()
+        e = compare(f"upconv3x3_prelu ragged bf16 {tuple(x.shape)}->{cout}", got,
+                    upconv.upconv3x3_prelu_plain(*args), TOL["bf16"])
+        errs[("upconv3x3_prelu", "bf16")] = max(errs[("upconv3x3_prelu", "bf16")], e)
     return errs
 
 
@@ -515,27 +575,14 @@ def step_ms(step, batch, reps):
 
 def profile_step(step, batch):
     """The ten CUDA kernels of one stage-1 step that take the most device
-    time, by the profiler's device-side events (summing the host-side ops
-    as well would count each kernel twice)."""
-    from torch.autograd import DeviceType
+    time, and the device's busy share of its wall time."""
     from torch.profiler import ProfilerActivity, profile
     run_step(step, batch, seed=30)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run_step(step, batch, seed=31)
         wall = (time.perf_counter() - t0) * 1e3
-    kernels = [(e.self_device_time_total / 1e3, e) for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
-    total = sum(ms for ms, _ in kernels)
-    print(f"  profiler, one stage-1 step: wall {wall:.3f} ms, device busy "
-          f"{total:.3f} ms ({100 * total / wall:.1f}% of the wall time), "
-          f"{sum(e.count for _, e in kernels)} kernel launches")
-    if not kernels:
-        print("  the profiler recorded no device time: the step times above "
-              "(host clock around synchronised steps) stand alone")
-    for ms, e in sorted(kernels, key=lambda v: -v[0])[:10]:
-        print(f"    {ms:9.3f} ms {100 * ms / total:5.1f}%  x{e.count:<5d} "
-              f"{e.key[:100]}")
+    total = top_device_kernels(prof, wall, "one stage-1 step")
     return wall, total
 
 
@@ -637,24 +684,9 @@ def upconv_library(x, w, bias, alpha):
     return F.prelu(y, alpha.reshape(1))
 
 
-def kernel_ms_per_forward(dtype, batch, gen):
-    """Time of the kernel launches one PoseNet forward makes at `batch`."""
-    from plr2_tpu_torch.ops import mlp_head, upconv
-    ms = {"mlp_head": 0.0, "upconv3x3_prelu": 0.0}
-    for name in STAGES:
-        args = stage_inputs(name, dtype, gen, batch)
-        ms["upconv3x3_prelu"] += time_ms(lambda: upconv.upconv3x3_prelu(*args), 5)
-    del args
-    for tag in HEAD_OUT:
-        x, params = head_inputs(tag, dtype, gen, batch)
-        ms["mlp_head"] += time_ms(lambda: mlp_head.mlp_head(x, params), 5)
-    return ms
-
-
 @phase("timing")
 def timing_phase(kern, launches, errs):
-    from plr2_tpu_torch.ops import mlp_head, upconv
-    frames = {}
+    frames, tables = {}, {}
     gen = torch.Generator().manual_seed(3)
     for dt_name, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
         kern.cast(dtype)
@@ -666,76 +698,146 @@ def timing_phase(kern, launches, errs):
             frames[f"{dt_name}_b{batch}"] = batch * 1e3 / ms
             print(f"  estimate {dt_name} batch {batch}: {ms:.3f} ms "
                   f"= {batch * 1e3 / ms:.1f} frames/s")
-            kms = kernel_ms_per_forward(dtype, batch, gen)
+            t = tables[(dt_name, batch)] = kernel_table(
+                dt_name, dtype, gen, batch, with_plain=batch == BATCH)
+            kms = {k: v["ms"] for k, v in t.items()}
             print(f"    kernels of its PoseNet forward: mlp_head x3 "
                   f"{kms['mlp_head']:.3f} ms + upconv3x3_prelu x3 "
                   f"{kms['upconv3x3_prelu']:.3f} ms = "
                   f"{100 * sum(kms.values()) / ms:.1f}% of the estimate")
-            torch.cuda.empty_cache()
 
     entries = []
-    for dt_name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
-        item = torch.empty((), dtype=dtype).element_size()
-        tot = {k: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-                   "flops": 0, "bytes": 0} for k in SOURCES}
-        for name, (h, w, cin, cout) in STAGES.items():
-            args = stage_inputs(name, dtype, gen)
-            t = tot["upconv3x3_prelu"]
-            k = time_ms(lambda: upconv.upconv3x3_prelu(*args), 10)
-            p = time_ms(lambda: upconv.upconv3x3_prelu_plain(*args), 5)
-            lib = time_ms(lambda: upconv_library(*args), 10)
-            b = args[0].shape[0]
-            fl = upconv.flops(b, h, w, cin, cout)
-            by = item * (b * h * w * cin + 9 * cin * cout + cout + 1
-                         + b * 4 * h * w * cout)
-            print(f"  upconv3x3_prelu {name} {dt_name}: kernel {k:.3f} ms "
-                  f"({fl / k / 1e9:.1f} TFLOP/s), plain {p:.3f} ms, "
-                  f"library {lib:.3f} ms")
-            for key, v in (("ms", k), ("plain_ms", p), ("library_ms", lib),
-                           ("flops", fl), ("bytes", by)):
-                t[key] += v
-        for tag, od in HEAD_OUT.items():
-            x, params = head_inputs(tag, dtype, gen)
-            rows = x.shape[0]
-            widths = HEAD_WIDTHS + (NUM_OBJ * od,)
-            t = tot["mlp_head"]
-            k = time_ms(lambda: mlp_head.mlp_head(x, params), 10)
-            p = time_ms(lambda: mlp_head.mlp_head_plain(x, params), 5)
-
-            def library():
-                h = x
-                for i, (wt, b) in enumerate(params):
-                    h = torch.addmm(b, h, wt.t())
-                    if i < 3:
-                        h = torch.relu(h)
-                return h
-            lib = time_ms(library, 10)
-            fl = mlp_head.flops(rows, widths)
-            by = item * (rows * widths[0] + rows * widths[-1] + sum(
-                wt.numel() + b.numel() for wt, b in params))
-            print(f"  mlp_head {tag} {dt_name}: kernel {k:.3f} ms "
-                  f"({fl / k / 1e9:.1f} TFLOP/s), plain {p:.3f} ms, "
-                  f"library {lib:.3f} ms")
-            for key, v in (("ms", k), ("plain_ms", p), ("library_ms", lib),
-                           ("flops", fl), ("bytes", by)):
-                t[key] += v
+    for dt_name in ("f32", "bf16"):
         paths = (("f32", "train_stage1", "train_refine") if dt_name == "f32"
                  else ("bf16",))
-        for kname, t in tot.items():
-            ops_ms = t["flops"] / PEAK_FLOPS[dt_name] * 1e3
-            bytes_ms = t["bytes"] / HBM_BYTES_PER_S * 1e3
+        for kname, t in tables[(dt_name, BATCH)].items():
             by_path = {PATH_NAMES.get(pth, pth): launches[pth][kname]
                        for pth in paths}
-            entries.append({
+            bound, bound_by = bound_of(t, dt_name)
+            entry = {
                 "name": f"{kname}_{dt_name}", "route": "cuda",
                 "source": SOURCES[kname][0], "replaces": SOURCES[kname][1],
                 "launches": sum(by_path.values()), "launches_by_path": by_path,
                 "max_abs_err": errs[(kname, dt_name)],
                 "ms": t["ms"], "plain_ms": t["plain_ms"],
-                "bound_ms": max(ops_ms, bytes_ms),
-                "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-                "library_ms": t["library_ms"]})
-    return frames, entries
+                "bound_ms": bound, "bound_by": bound_by,
+                "library_ms": t["library_ms"]}
+            if dt_name == "bf16":
+                b = tables[(dt_name, BATCH_BIG)][kname]
+                entry.update({"ms_b128": b["ms"], "library_ms_b128": b["library_ms"],
+                              "bound_ms_b128": bound_of(b, dt_name)[0]})
+            entries.append(entry)
+    kern.cast(torch.bfloat16)
+    profile = profile_estimate(kern, BATCH_BIG)
+    return frames, entries, profile
+
+
+def bound_of(t, dt_name):
+    """The H100's least time for a kernel's work: max(operations / peak,
+    bytes / HBM rate), and which of the two it is."""
+    ops_ms = t["flops"] / PEAK_FLOPS[dt_name] * 1e3
+    bytes_ms = t["bytes"] / HBM_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
+
+
+def kernel_table(dt_name, dtype, gen, batch, with_plain):
+    """Per PoseNet forward at `batch` (3 decoder stages, 3 heads): kernel,
+    plain-version (if `with_plain`) and library ms, FLOP and bytes."""
+    from plr2_tpu_torch.ops import mlp_head, upconv
+    item = torch.empty((), dtype=dtype).element_size()
+    tot = {k: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+               "flops": 0, "bytes": 0} for k in SOURCES}
+    for name, (h, w, cin, cout) in STAGES.items():
+        args = stage_inputs(name, dtype, gen, batch)
+        t = tot["upconv3x3_prelu"]
+        k = time_ms(lambda: upconv.upconv3x3_prelu(*args), 10)
+        p = time_ms(lambda: upconv.upconv3x3_prelu_plain(*args), 5) if with_plain else 0.0
+        lib = time_ms(lambda: upconv_library(*args), 10)
+        b = args[0].shape[0]
+        fl = upconv.flops(b, h, w, cin, cout)
+        by = item * (b * h * w * cin + 9 * cin * cout + cout + 1
+                     + b * 4 * h * w * cout)
+        print(f"  upconv3x3_prelu {name} {dt_name} batch {batch}: kernel {k:.3f} ms "
+              f"({fl / k / 1e9:.1f} TFLOP/s), "
+              + (f"plain {p:.3f} ms, " if with_plain else "")
+              + f"library {lib:.3f} ms")
+        for key, v in (("ms", k), ("plain_ms", p), ("library_ms", lib),
+                       ("flops", fl), ("bytes", by)):
+            t[key] += v
+        del args
+    for tag, od in HEAD_OUT.items():
+        x, params = head_inputs(tag, dtype, gen, batch)
+        rows = x.shape[0]
+        widths = HEAD_WIDTHS + (NUM_OBJ * od,)
+        t = tot["mlp_head"]
+        k = time_ms(lambda: mlp_head.mlp_head(x, params), 10)
+        p = time_ms(lambda: mlp_head.mlp_head_plain(x, params), 5) if with_plain else 0.0
+
+        def library():
+            h = x
+            for i, (wt, b) in enumerate(params):
+                h = torch.addmm(b, h, wt.t())
+                if i < 3:
+                    h = torch.relu(h)
+            return h
+        lib = time_ms(library, 10)
+        fl = mlp_head.flops(rows, widths)
+        by = item * (rows * widths[0] + rows * widths[-1] + sum(
+            wt.numel() + b.numel() for wt, b in params))
+        print(f"  mlp_head {tag} {dt_name} batch {batch}: kernel {k:.3f} ms "
+              f"({fl / k / 1e9:.1f} TFLOP/s), "
+              + (f"plain {p:.3f} ms, " if with_plain else "")
+              + f"library {lib:.3f} ms")
+        for key, v in (("ms", k), ("plain_ms", p), ("library_ms", lib),
+                       ("flops", fl), ("bytes", by)):
+            t[key] += v
+        del x, params
+    for kname, t in tot.items():
+        bound, bound_by = bound_of(t, dt_name)
+        print(f"  {kname} {dt_name} batch {batch}, per forward: kernel "
+              f"{t['ms']:.3f} ms, library {t['library_ms']:.3f} ms, bound "
+              f"{bound:.4f} ms ({bound_by})")
+    torch.cuda.empty_cache()
+    return tot
+
+
+def top_device_kernels(prof, wall, what, n=10):
+    """Print the `n` CUDA kernels with the most device time in a profile
+    (device-side events only: adding the host-side ops would count each
+    kernel twice) and the device's busy share of `wall`."""
+    from torch.autograd import DeviceType
+    kernels = [(e.self_device_time_total / 1e3, e) for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    total = sum(ms for ms, _ in kernels)
+    print(f"  profiler, {what}: wall {wall:.3f} ms, device busy "
+          f"{total:.3f} ms ({100 * total / wall:.1f}% of the wall time, idle "
+          f"{100 - 100 * total / wall:.1f}%), "
+          f"{sum(e.count for _, e in kernels)} kernel launches")
+    if not kernels:
+        print("  the profiler recorded no device time: the times above "
+              "(CUDA events or host clock around synchronised work) stand alone")
+    for ms, e in sorted(kernels, key=lambda v: -v[0])[:n]:
+        print(f"    {ms:9.3f} ms {100 * ms / max(total, 1e-12):5.1f}%  x{e.count:<5d} "
+              f"{e.key[:100]}")
+    return total
+
+
+def profile_estimate(kern, batch):
+    """The CUDA kernels of one bf16 estimate at `batch` that take the most
+    device time, and the device's idle share of its wall time."""
+    from torch.profiler import ProfilerActivity, profile
+    inputs = main_inputs(batch)
+    kern.estimate(*inputs, refine_iterations=ITERS)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        kern.estimate(*inputs, refine_iterations=ITERS)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = top_device_kernels(prof, wall, f"one bf16 estimate at batch {batch}", 12)
+    del inputs
+    torch.cuda.empty_cache()
+    return {"wall_ms": wall, "device_ms": busy}
 
 
 @phase("train timing")
@@ -1058,7 +1160,8 @@ def main():
     kern, launches = main_path_phase()
     tkern, batch, train_launches, train_result = train_phase()
     launches.update(train_launches)
-    frames, entries = timing_phase(kern, launches, errs)
+    frames, entries, est_profile = timing_phase(kern, launches, errs)
+    kern.cast(torch.float32)
     tf32 = tf32_phase(kern)
     del kern
     train_times, knn_entries = train_timing_phase(tkern, batch, train_result,
@@ -1070,7 +1173,8 @@ def main():
     print(f"summary: build {build_s:.2f} s, total {time.perf_counter() - t0:.2f} s, "
           f"frames/s {json.dumps({k: round(v, 1) for k, v in frames.items()})}, "
           f"train {json.dumps({k: round(v, 3) for k, v in train_times.items()})}, "
-          f"tf32 {json.dumps({k: round(v, 6) for k, v in tf32.items()})}")
+          f"tf32 {json.dumps({k: round(v, 6) for k, v in tf32.items()})}, "
+          f"bf16 estimate profile {json.dumps({k: round(v, 3) for k, v in est_profile.items()})}")
     print(smi)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

@@ -144,6 +144,22 @@ def require_dtype(tensors, what: str) -> None:
             raise TypeError(f"{what}: all tensors must be {dt}, got {t.dtype}")
 
 
+def aligned16(t: torch.Tensor) -> torch.Tensor:
+    """`t`, or a copy of it where its data does not start on 16 bytes, as a
+    TMA load needs."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def require_multiple_of_8(widths, names, what: str, shapes: str) -> None:
+    """The bf16 tensor-core kernels read rows by TMA, whose row strides
+    must be multiples of 16 bytes: these bf16 widths multiples of 8."""
+    bad = [f"{n} = {c}" for n, c in zip(names, widths) if c % 8]
+    if bad:
+        raise ValueError(f"{what}: the bf16 kernel needs {', '.join(names)} to "
+                         f"be multiples of 8 (16-byte TMA row strides), got "
+                         f"{', '.join(bad)} for {shapes}")
+
+
 def require_contiguous(tensors, what: str) -> None:
     for t in tensors:
         if not t.is_contiguous():

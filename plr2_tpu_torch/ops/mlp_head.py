@@ -2,7 +2,10 @@
 
 Replaces the TPU kernel ``plr2_tpu/ops/pallas_fusion.py``
 ``fused_mlp_head``. Source: ``csrc/mlp_head.cu``, whose header says what
-bounds it on the H100 (operations) and how it is built.
+bounds it on the H100 and how it is built: bf16 on the tensor cores
+(``wgmma`` fed by TMA), f32 on the FP32 cores. The bf16 kernel pads every
+width to 64 on chip (TMA reads zeros past an edge), so it needs no padded
+copies; it needs C, N1, N2 and N3 to be multiples of 8 (``tc_widths``).
 
 Weights are in the torch ``Linear`` / ``Conv1d`` layout, (out, in): the
 PoseNet heads hold ``Conv1d`` weights of shape (out, in, 1), viewed as
@@ -67,12 +70,26 @@ def _check(x: torch.Tensor, params: Params) -> None:
         c_in = w.shape[0]
 
 
+def tc_widths(x: torch.Tensor, params: Params) -> None:
+    """Raise ValueError unless the bf16 kernel takes these widths: the
+    inputs of every layer (C, N1, N2, N3) are rows that TMA loads, so they
+    must be multiples of 8. P and N4 may be anything."""
+    widths = [x.shape[1]] + [w.shape[0] for w, _ in params[:-1]]
+    _build.require_multiple_of_8(
+        widths, ("C", "N1", "N2", "N3"), "mlp_head",
+        f"x {tuple(x.shape)} and weights {[tuple(w.shape) for w, _ in params]}")
+
+
 def mlp_head_forward(x: torch.Tensor, params: Params) -> torch.Tensor:
     """The ladder through the CUDA kernel (plain PyTorch for CPU tensors)."""
     global launches
     if x.device.type == "cpu":
         return mlp_head_plain(x, params)
     _check(x, params)
+    if x.dtype == torch.bfloat16:
+        tc_widths(x, params)
+        x = _build.aligned16(x)
+        params = [(_build.aligned16(w), b) for w, b in params]
     (w1, b1), (w2, b2), (w3, b3), (w4, b4) = params
     n1, n2, n3, n4 = (w.shape[0] for w, _ in params)
     out = torch.empty((x.shape[0], n4), device=x.device, dtype=x.dtype)

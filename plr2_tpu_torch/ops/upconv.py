@@ -3,7 +3,10 @@
 Replaces the TPU kernel ``plr2_tpu/ops/pallas_upsample.py``
 ``fused_upconv3x3_prelu``. Source: ``csrc/upconv.cu``,
 whose header says what bounds it on the H100 (operations) and what its
-design does about it. Same signature as the JAX kernel: x NHWC
+design does about it: bf16 is an implicit GEMM on the tensor cores
+(``wgmma`` fed by TMA) that reads the weights as ``pack_weights`` lays
+them out and needs Cin to be a multiple of 8 (``tc_widths``); f32 runs on
+the FP32 cores and reads HWIO. Same signature as the JAX kernel: x NHWC
 (B, H, W, Cin), w HWIO (3, 3, Cin, Cout), bias (Cout,), alpha a
 one-element tensor; returns (B, 2H, 2W, Cout).
 
@@ -75,6 +78,23 @@ def _check(x, w, bias, alpha) -> None:
                          f"{tuple(alpha.shape)}")
 
 
+def pack_weights(w: torch.Tensor) -> torch.Tensor:
+    """HWIO (3, 3, Cin, Cout) -> (9, Cout, Cin): one (Cout, Cin) matrix per
+    tap (tap = 3 dy + dx), K-major rows, the B operand the bf16 kernel's
+    TMA loads tile by tile (64 output channels x 64 input channels)."""
+    cin, cout = w.shape[2], w.shape[3]
+    return w.permute(0, 1, 3, 2).reshape(9, cout, cin).contiguous()
+
+
+def tc_widths(x: torch.Tensor, w: torch.Tensor) -> None:
+    """Raise ValueError unless the bf16 kernel takes these widths: Cin is
+    the row of x and of the packed weights that TMA loads, so it must be a
+    multiple of 8. B, H, W and Cout may be anything."""
+    _build.require_multiple_of_8(
+        [x.shape[3]], ("Cin",), "upconv3x3_prelu",
+        f"x {tuple(x.shape)} and w {tuple(w.shape)}")
+
+
 def upconv3x3_prelu_forward(x: torch.Tensor, w: torch.Tensor,
                             bias: torch.Tensor,
                             alpha: torch.Tensor) -> torch.Tensor:
@@ -85,6 +105,9 @@ def upconv3x3_prelu_forward(x: torch.Tensor, w: torch.Tensor,
     _check(x, w, bias, alpha)
     b, h, wd, cin = x.shape
     cout = w.shape[3]
+    if x.dtype == torch.bfloat16:
+        tc_widths(x, w)
+        x, w = _build.aligned16(x), _build.aligned16(pack_weights(w))
     out = torch.empty((b, 2 * h, 2 * wd, cout), device=x.device, dtype=x.dtype)
     err = _build.lib().plr2_upconv3x3_prelu(
         _build.DTYPE_CODES[x.dtype], x.data_ptr(), w.data_ptr(),
