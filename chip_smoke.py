@@ -8,14 +8,17 @@ non-zero, and there is no CPU fallback:
 
 1. device: a CUDA card must be present; prints its name and power limit.
 2. build: compiles plr2_tpu_torch/csrc/*.cu with one nvcc call (into the
-   git-ignored plr2_tpu_torch/_build/) and prints the wall time; counts
-   the HGMMA (wgmma) instructions of each bf16 tensor-core kernel in the
-   library's SASS (cuobjdump, beside nvcc): a kernel with none fails.
+   git-ignored plr2_tpu_torch/_build/) and prints the wall time; scans
+   the library's SASS (cuobjdump, beside nvcc): each bf16 tensor-core
+   kernel must hold HGMMA (wgmma) instructions, each f32 kernel FFMA and
+   no HMMA or HGMMA (no TF32 on the tensor cores).
 3. kernels: each CUDA kernel against its plain PyTorch version on the card,
-   in f32 and bf16, at the shapes the main path gives it (batch 8); then
-   the bf16 kernels at ragged shapes that fill no tile (heads at 977 and
-   8000 rows, K = 21, 63, 84, and a narrow ladder; decoder stages at odd
-   sizes, Cin 64 and 1024, Cout 24 and 256, batch 1 and 3).
+   in f32 and bf16, at the shapes the main path gives it (batch 8; f32
+   also at batch 128, where it picks other tiles); then both dtypes at
+   ragged shapes that fill no tile (heads at 977 and 8000 rows, K = 21,
+   63, 84, and a narrow ladder; decoder stages at odd sizes, Cin 64 and
+   1024, Cout 24 and 256, batch 1 and 3; f32 also Cin 6 and 37, Cout 10
+   and 130, and a head of C = 202).
 4. knn: the three ADD-S nearest-neighbour kernels (nn_match, nn_argmin,
    nn_match_mxu) against their plain twins at the stage-1 shape (5
    symmetric samples x 500k queries x 500 targets) and at YCB's 2600-point
@@ -35,9 +38,10 @@ non-zero, and there is no CPU fallback:
    then 3 more stage-1 steps with finite losses.
 8. timing: estimate frames/s at batch 8 and 128, per-kernel times at the
    main-path shapes beside the plain version, one PyTorch library call of
-   the same function, and the bound of the H100 (bf16 also at batch 128);
-   a profiler table of one bf16 estimate at batch 128; train-step ms and
-   samples/s of both stages; a profiler table of a stage-1 step.
+   the same function, and the bound of the H100 (also at batch 128);
+   profiler tables of one f32 and one bf16 estimate at batch 128;
+   train-step ms and samples/s of both stages; a profiler table of a
+   stage-1 step.
 9. tf32: the f32 estimate runs with TF32 off whatever the caller set (a
    hook on a PoseNet convolution reads the flags); then the f32 PoseNet at
    batch 128 with cuDNN TF32 on and off: ms and the best-hypothesis pose
@@ -138,12 +142,22 @@ KERNEL_NAMES = (*SOURCES, *KNN_SOURCES, "quantized_mlp_head")
 # the bf16 tensor-core kernels, by a substring of their SASS function names
 TC_KERNELS = {"mlp_head": "mlp_head_wgmma_kernel",
               "upconv3x3_prelu": "upconv_wgmma_kernel"}
-# ragged shapes for the bf16 kernels: head (rows, widths) and decoder
-# (batch, h, w, Cin, Cout); none fills every tile
+# the f32 FP32-core kernels: FFMA only, no tensor-core instruction (TF32
+# would run as HMMA or HGMMA), in every template instantiation
+F32_KERNELS = {"mlp_head": "head_sgemm_kernel",
+               "upconv3x3_prelu": "upconv_sgemm_kernel"}
+# ragged shapes for the f32 and bf16 kernels: head (rows, widths) and
+# decoder (batch, h, w, Cin, Cout); none fills every tile
 RAGGED_HEADS = [(rows, HEAD_WIDTHS + (NUM_OBJ * od,)) for rows in (977, 8000)
                 for od in HEAD_OUT.values()] + [(977, (200, 72, 40, 24, 5))]
 RAGGED_STAGES = [(1, 5, 7, 64, 24), (3, 21, 13, 1024, 256),
                  (3, 5, 7, 1024, 24), (1, 21, 13, 64, 256)]
+# f32 only (the bf16 kernel needs Cin % 8 == 0): Cin not a multiple of 4
+# (the footprint's 4-byte copies) and Cout not a multiple of 4 (padded
+# weight rows, scalar stores)
+F32_STAGES = [(2, 5, 7, 6, 10), (1, 9, 6, 37, 130)]
+# and a head whose x rows are not 16 bytes (C = 202: scalar loads of A)
+F32_HEADS = [(977, (202, 40, 24, 12, 5))]
 PATH_NAMES = {"f32": "estimate_f32", "bf16": "estimate_bf16"}
 
 
@@ -202,18 +216,30 @@ def build_phase():
         if ("registers" in line or "spill" in line or "Compiling" in line
                 or "C7515" in line):
             print("  ptxas:", line.strip())
-    hgmma = count_hgmma(path, _build.find_nvcc())
-    for name, n in hgmma.items():
-        print(f"  SASS: {n} HGMMA instructions in {name} (bf16 {TC_KERNELS[name]}; "
+    sass = count_sass(path, _build.find_nvcc())
+    bad = []
+    for name, sub in TC_KERNELS.items():
+        n = min((c["HGMMA"] for f, c in sass.items() if sub in f), default=0)
+        print(f"  SASS: {n} HGMMA instructions in {name} (bf16 {sub}; "
               f"must be > 0) {'ok' if n else 'FAIL'}")
-    if not all(hgmma.values()):
-        raise AssertionError(f"a bf16 tensor-core kernel has no HGMMA: {hgmma}")
+        bad += [] if n else [f"{name} bf16 has no HGMMA"]
+    for name, sub in F32_KERNELS.items():
+        fns = {f: c for f, c in sass.items() if sub in f}
+        for f, c in sorted(fns.items()):
+            ok = c["FFMA"] > 0 and c["HMMA"] == 0 and c["HGMMA"] == 0
+            print(f"  SASS: {c['FFMA']} FFMA, {c['HMMA']} HMMA, {c['HGMMA']} HGMMA "
+                  f"in f32 {f[:90]} (FFMA > 0, no tensor-core instruction) "
+                  f"{'ok' if ok else 'FAIL'}")
+            bad += [] if ok else [f"{name} f32 {f}: {c}"]
+        bad += [] if fns else [f"no f32 {sub} in the library"]
+    if bad:
+        raise AssertionError(f"SASS check failed: {bad}")
     return wall
 
 
-def count_hgmma(lib_path, nvcc):
-    """HGMMA instructions per bf16 tensor-core kernel in the library's SASS
-    (the fewest over a kernel's template instantiations)."""
+def count_sass(lib_path, nvcc):
+    """FFMA, HMMA and HGMMA instructions of each function in the library's
+    SASS (cuobjdump, beside nvcc), by mangled function name."""
     cuobjdump = Path(nvcc).with_name("cuobjdump")
     sass = subprocess.run([str(cuobjdump), "-sass", str(lib_path)],
                           capture_output=True, text=True, timeout=300,
@@ -222,11 +248,12 @@ def count_hgmma(lib_path, nvcc):
     for line in sass.splitlines():
         if "Function : " in line:
             fn = line.split("Function : ")[1].strip()
-            per_fn[fn] = 0
-        elif fn is not None and "HGMMA" in line:
-            per_fn[fn] += 1
-    return {name: min((n for f, n in per_fn.items() if sub in f), default=0)
-            for name, sub in TC_KERNELS.items()}
+            per_fn[fn] = {"FFMA": 0, "HMMA": 0, "HGMMA": 0}
+        elif fn is not None:
+            for op in per_fn[fn]:
+                if f" {op}." in line or f" {op} " in line:
+                    per_fn[fn][op] += 1
+    return per_fn
 
 
 def _rand(shape, gen, scale=1.0, dtype=None):
@@ -277,9 +304,13 @@ def kernels_phase():
     from plr2_tpu_torch.ops import mlp_head, upconv
     errs = {}
     gen = torch.Generator().manual_seed(1)
-    for dt_name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+    # the f32 kernels pick their tiles by the grid's waves: batch 128 takes
+    # other tiles than batch 8, so both are checked
+    for dt_name, dtype, batch in (("f32", torch.float32, BATCH),
+                                  ("bf16", torch.bfloat16, BATCH),
+                                  ("f32", torch.float32, BATCH_BIG)):
         for name in STAGES:
-            args = stage_inputs(name, dtype, gen)
+            args = stage_inputs(name, dtype, gen, batch)
             got = upconv.upconv3x3_prelu(*args)
             torch.cuda.synchronize()
             ref = upconv.upconv3x3_prelu_plain(*args)
@@ -287,8 +318,9 @@ def kernels_phase():
                         f"{tuple(args[0].shape)}", got, ref, TOL[dt_name])
             errs[("upconv3x3_prelu", dt_name)] = max(
                 errs.get(("upconv3x3_prelu", dt_name), 0.0), e)
+            del args, got, ref
         for tag in HEAD_OUT:
-            x, params = head_inputs(tag, dtype, gen)
+            x, params = head_inputs(tag, dtype, gen, batch)
             got = mlp_head.mlp_head(x, params)
             torch.cuda.synchronize()
             ref = mlp_head.mlp_head_plain(x, params)
@@ -296,26 +328,30 @@ def kernels_phase():
                         f"{params[-1][0].shape[0]}", got, ref, TOL[dt_name])
             errs[("mlp_head", dt_name)] = max(
                 errs.get(("mlp_head", dt_name), 0.0), e)
-    for rows, widths in RAGGED_HEADS:
-        x = _rand((rows, widths[0]), gen, 1.0, torch.bfloat16)
-        params = [(_rand((o, i), gen, i ** -0.5, torch.bfloat16),
-                   _rand((o,), gen, 0.1, torch.bfloat16))
-                  for i, o in zip(widths[:-1], widths[1:])]
-        got = mlp_head.mlp_head(x, params)
-        torch.cuda.synchronize()
-        e = compare(f"mlp_head ragged bf16 {rows} rows {widths}", got,
-                    mlp_head.mlp_head_plain(x, params), TOL["bf16"])
-        errs[("mlp_head", "bf16")] = max(errs[("mlp_head", "bf16")], e)
-    for b, h, w, cin, cout in RAGGED_STAGES:
-        x = _rand((b, h, w, cin), gen, 1.0, torch.bfloat16)
-        args = (x, _rand((3, 3, cin, cout), gen, (9 * cin) ** -0.5, torch.bfloat16),
-                _rand((cout,), gen, 0.1, torch.bfloat16),
-                torch.full((1,), 0.25, device=DEVICE, dtype=torch.bfloat16))
-        got = upconv.upconv3x3_prelu(*args)
-        torch.cuda.synchronize()
-        e = compare(f"upconv3x3_prelu ragged bf16 {tuple(x.shape)}->{cout}", got,
-                    upconv.upconv3x3_prelu_plain(*args), TOL["bf16"])
-        errs[("upconv3x3_prelu", "bf16")] = max(errs[("upconv3x3_prelu", "bf16")], e)
+            del x, params, got, ref
+    for dt_name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        heads = RAGGED_HEADS + (F32_HEADS if dtype == torch.float32 else [])
+        for rows, widths in heads:
+            x = _rand((rows, widths[0]), gen, 1.0, dtype)
+            params = [(_rand((o, i), gen, i ** -0.5, dtype), _rand((o,), gen, 0.1, dtype))
+                      for i, o in zip(widths[:-1], widths[1:])]
+            got = mlp_head.mlp_head(x, params)
+            torch.cuda.synchronize()
+            e = compare(f"mlp_head ragged {dt_name} {rows} rows {widths}", got,
+                        mlp_head.mlp_head_plain(x, params), TOL[dt_name])
+            errs[("mlp_head", dt_name)] = max(errs[("mlp_head", dt_name)], e)
+        stages = RAGGED_STAGES + (F32_STAGES if dtype == torch.float32 else [])
+        for b, h, w, cin, cout in stages:
+            x = _rand((b, h, w, cin), gen, 1.0, dtype)
+            args = (x, _rand((3, 3, cin, cout), gen, (9 * cin) ** -0.5, dtype),
+                    _rand((cout,), gen, 0.1, dtype),
+                    torch.full((1,), 0.25, device=DEVICE, dtype=dtype))
+            got = upconv.upconv3x3_prelu(*args)
+            torch.cuda.synchronize()
+            e = compare(f"upconv3x3_prelu ragged {dt_name} {tuple(x.shape)}->{cout}",
+                        got, upconv.upconv3x3_prelu_plain(*args), TOL[dt_name])
+            errs[("upconv3x3_prelu", dt_name)] = max(
+                errs[("upconv3x3_prelu", dt_name)], e)
     return errs
 
 
@@ -722,13 +758,13 @@ def timing_phase(kern, launches, errs):
                 "ms": t["ms"], "plain_ms": t["plain_ms"],
                 "bound_ms": bound, "bound_by": bound_by,
                 "library_ms": t["library_ms"]}
-            if dt_name == "bf16":
-                b = tables[(dt_name, BATCH_BIG)][kname]
-                entry.update({"ms_b128": b["ms"], "library_ms_b128": b["library_ms"],
-                              "bound_ms_b128": bound_of(b, dt_name)[0]})
+            b = tables[(dt_name, BATCH_BIG)][kname]
+            entry.update({"ms_b128": b["ms"], "library_ms_b128": b["library_ms"],
+                          "bound_ms_b128": bound_of(b, dt_name)[0]})
             entries.append(entry)
+    profile = {"f32": profile_estimate(kern, BATCH_BIG)}  # kern is f32 here
     kern.cast(torch.bfloat16)
-    profile = profile_estimate(kern, BATCH_BIG)
+    profile["bf16"] = profile_estimate(kern, BATCH_BIG)
     return frames, entries, profile
 
 
@@ -823,8 +859,9 @@ def top_device_kernels(prof, wall, what, n=10):
 
 
 def profile_estimate(kern, batch):
-    """The CUDA kernels of one bf16 estimate at `batch` that take the most
-    device time, and the device's idle share of its wall time."""
+    """The CUDA kernels of one estimate at `batch` in the pipeline's dtype
+    that take the most device time, and the device's idle share of its
+    wall time."""
     from torch.profiler import ProfilerActivity, profile
     inputs = main_inputs(batch)
     kern.estimate(*inputs, refine_iterations=ITERS)
@@ -834,7 +871,8 @@ def profile_estimate(kern, batch):
         kern.estimate(*inputs, refine_iterations=ITERS)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    busy = top_device_kernels(prof, wall, f"one bf16 estimate at batch {batch}", 12)
+    dt_name = "bf16" if kern.dtype == torch.bfloat16 else "f32"
+    busy = top_device_kernels(prof, wall, f"one {dt_name} estimate at batch {batch}", 12)
     del inputs
     torch.cuda.empty_cache()
     return {"wall_ms": wall, "device_ms": busy}
@@ -1174,7 +1212,7 @@ def main():
           f"frames/s {json.dumps({k: round(v, 1) for k, v in frames.items()})}, "
           f"train {json.dumps({k: round(v, 3) for k, v in train_times.items()})}, "
           f"tf32 {json.dumps({k: round(v, 6) for k, v in tf32.items()})}, "
-          f"bf16 estimate profile {json.dumps({k: round(v, 3) for k, v in est_profile.items()})}")
+          f"estimate profiles {json.dumps({d: {k: round(v, 3) for k, v in p.items()} for d, p in est_profile.items()})}")
     print(smi)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

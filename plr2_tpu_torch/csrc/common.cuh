@@ -17,23 +17,52 @@ namespace plr2 {
 // dtype codes shared with ops/_build.py
 enum DType : int { kF32 = 0, kBF16 = 1 };
 
-template <typename T> __device__ __forceinline__ float to_f(T v);
-template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
+// 32-bit shared-window address of a pointer into shared memory
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// round-to-nearest-even, as torch's float -> bfloat16 conversion
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
+// ---------------------------------------------------------------------------
+// Asynchronous copies into shared memory (cp.async, sm_80+), for the f32
+// kernels on the FP32 cores (mlp_head.cu, upconv.cu). `bytes` of the source
+// are copied and the rest of the destination is zero-filled, so a copy with
+// bytes = 0 only writes zeros (its source address must still be valid).
+
+// 16 bytes, through L2 only; dst and src 16-byte aligned
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
 }
 
-// value rounded to T and widened back: the working-type rounding of an
-// intermediate that the reference stores in the input dtype
-template <typename T> __device__ __forceinline__ float round_to(float v) {
-  return to_f<T>(from_f<T>(v));
+// 4 bytes; dst and src 4-byte aligned
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// returns once at most N of this thread's committed groups are pending
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// Blocks the device runs at once with `per_sm` blocks on each SM (the
+// count of SMs is read once)
+inline int block_slots(int per_sm) {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (sms <= 0) sms = 1;
+  }
+  return per_sm * sms;
 }
 
 // Raise the dynamic shared-memory limit of `kernel` to `bytes` (needed
@@ -53,10 +82,6 @@ inline cudaError_t allow_smem(K kernel, int bytes, int& granted) {
 // Hopper pieces of the bf16 tensor-core kernels (mlp_head.cu, upconv.cu):
 // mbarriers, TMA loads, wgmma and its shared-memory descriptors. Addresses
 // of shared memory are 32-bit shared-window addresses (smem_addr).
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count)

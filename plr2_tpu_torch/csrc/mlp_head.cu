@@ -62,154 +62,347 @@
 // 16-byte row strides: C0, N1, N2 and N3 must be multiples of 8 (the
 // wrapper checks) and every pointer 16-byte aligned.
 //
-// f32: scalar FP32 FMAs (mlp_head_kernel below), simple first: one
-// block of 32 rows keeps its activations in shared memory and streams the
-// weights in 32 x 128 tiles; a 16 x 16 thread grid, each thread a
-// (BM/16) x 8 tile of f32 accumulators.
+// f32: the FP32 cores (head_sgemm_kernel below), one launch per layer.
+// f32 stays full f32 (no TF32 on the tensor cores), so the bound is the
+// FFMA rate: 67 TFLOP/s, 0.26 ms for one head at 8000 rows. What holds an
+// FFMA kernel below it is shared memory: an SM issues 128 FFMAs but loads
+// 32 words a clock, so each loaded word must feed at least 4 FFMAs. The
+// whole ladder cannot stay on chip at the tile that needs: h1 alone is 160
+// KB of f32 at 64 rows, and a register-tiled SGEMM wants 128 rows a block.
+// So each layer is one register-tiled SGEMM with a fused epilogue (bias,
+// ReLU except on layer 4), and h1-h3 go through a device scratch that the
+// wrapper allocates (at 8000 rows h1 is 20 MB and stays in the 50 MB L2;
+// at 128,000 rows it is 328 MB of HBM traffic a head, ~0.2 ms against ~6
+// ms of FFMA time). A block of 256 threads owns a 128-row tile, 64, 128 or
+// 160 columns wide; each thread 8 rows x 4, 8 or 10 columns. Both
+// operands sit k-major in shared memory, A transposed on its way in, so a
+// k step is two float4 loads of A and at most three of B (none bank-
+// conflicted) for up to 80 FFMAs. Loads overlap the FFMAs: B by 16-byte
+// cp.async a stage ahead, A through registers (16-byte loads a stage
+// ahead, stored down the next stage's columns after the FFMAs) or, for
+// the 160-wide tile whose 80 accumulators leave no registers for that, by
+// 4-byte cp.async into a three-stage ring. At most 128 registers a thread
+// (__launch_bounds__(256, 2)): two blocks an SM. The tile width is chosen
+// per layer by waves (pick_shape): at 8000 rows layer 1 has 315 tiles of
+// 128 x 128 for 264 block slots, 252 of 128 x 160. B is W^T, packed per
+// call by the wrapper (ops/mlp_head.py `pack_weights_f32`, padded with
+// zeros to multiples of 4); x's columns are zero-padded to a multiple of 4
+// where they are not one. Ragged edges: rows past P, columns past N and
+// depth past K are zero-filled by the loads.
 #include "common.cuh"
 
 // ---------------------------------------------------------------------------
-// f32: the scalar kernel (see the header note).
+// f32: one register-tiled SGEMM launch per layer (see the header note).
 
 namespace plr2 {
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kBK = 32;   // depth of one staged tile
-constexpr int kBN = 128;  // output columns per pass
-constexpr int kTN = 8;    // columns per thread: tx + 16 * j
+constexpr int kSgThreads = 256;  // a 16 x 16 grid: tx walks columns, ty rows
+constexpr int kSgBM = 128;       // rows per block tile
+// row stride of A's k-major stages: 16-byte rows; the stores (or copies)
+// of one row's k by a warp fall in 2-way conflicting banks at worst
+constexpr int kSgLdA = kSgBM + 4;
 
-template <typename T>
-__host__ __device__ constexpr int row_pad() {
-  return sizeof(T) == 2 ? 2 : 1;  // one 32-bit word
+__host__ __device__ constexpr int round4(int n) { return (n + 3) & ~3; }
+
+// A 128 x 160 tile (BN = 160) needs 80 accumulators a thread and leaves
+// no registers to stage A through: its A comes by 4-byte cp.async into a
+// ring of three 32-deep stages. The 64- and 128-wide tiles stage A through
+// registers (16-byte loads, fewer load instructions) into two stages, 16
+// k at a time: 32 deep for the 64-wide tile, 16 for the 128-wide one
+// (whose 64 accumulators leave no room for the mid-stage loads).
+template <int BN>
+__host__ __device__ constexpr bool async_a() { return BN == 160; }
+
+template <int BN>
+__host__ __device__ constexpr int sgemm_bk() { return BN == 128 ? 16 : 32; }
+
+template <int BN>
+__host__ __device__ constexpr int sgemm_stages() { return async_a<BN>() ? 3 : 2; }
+
+template <int BN>
+constexpr int sgemm_smem_bytes() {
+  return (int)sizeof(float) * sgemm_stages<BN>() * sgemm_bk<BN>() * (kSgLdA + BN);
 }
 
-// One layer for the block's BM rows: for each 128-column pass, stage W (and
-// x, for the first layer) tile by tile, accumulate, then run the epilogue.
-template <typename T, int BM, bool kFirst, bool kLast>
-__device__ __forceinline__ void layer(
-    const T* __restrict__ xg, int m0, int P,      // first layer: x rows
-    const T* hin, int lda,                        // later layers: smem input
-    int K, const T* __restrict__ w, const T* __restrict__ b, int N,
-    T* hout, int ldo,                             // smem output (not last)
-    T* __restrict__ og,                           // device output (last)
-    float* xs, float* ws) {
-  constexpr int TM = BM / 16;
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  for (int n0 = 0; n0 < N; n0 += kBN) {
-    float acc[TM][kTN];
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < kTN; ++j) acc[i][j] = 0.f;
+// a thread's columns: float4 groups at 64 q + 4 tx, q < kQ, and for BN =
+// 160 a float2 group at 128 + 2 tx
+template <int BN> constexpr int kQ = BN >= 128 ? 2 : 1;
+template <int BN> constexpr bool kPair = BN == 160;
+template <int BN> constexpr int kTN = 4 * kQ<BN> + (kPair<BN> ? 2 : 0);  // 4, 8, 10
 
-    for (int k0 = 0; k0 < K; k0 += kBK) {
-      // ws[kk][nn] = W[n0 + nn][k0 + kk]; consecutive threads walk k, so
-      // device reads coalesce and the padded smem stores do not conflict
-      for (int e = tid; e < kBK * kBN; e += kThreads) {
-        const int kk = e % kBK, nn = e / kBK;
-        const int n = n0 + nn, k = k0 + kk;
-        ws[kk * (kBN + 1) + nn] =
-            (n < N && k < K) ? to_f<T>(w[(size_t)n * K + k]) : 0.f;
+// `steps` k steps: as (k-major A, offset to this thread's 4 ty) and bs
+// (k-major B, offset to 4 tx) into the thread's 8 x kTN accumulators
+template <int BN, int steps>
+__device__ __forceinline__ void sgemm_steps(const float* as, const float* bs, int tx,
+                                            float (&acc)[8][kTN<BN>]) {
+  constexpr int TN = kTN<BN>;
+#pragma unroll
+  for (int kk = 0; kk < steps; ++kk) {
+    const float4 a0 = *reinterpret_cast<const float4*>(as + kk * kSgLdA);
+    const float4 a1 = *reinterpret_cast<const float4*>(as + kk * kSgLdA + 64);
+    const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+    float b[TN];
+#pragma unroll
+    for (int q = 0; q < kQ<BN>; ++q) {
+      const float4 v = *reinterpret_cast<const float4*>(bs + kk * BN + q * 64);
+      b[4 * q] = v.x, b[4 * q + 1] = v.y, b[4 * q + 2] = v.z, b[4 * q + 3] = v.w;
+    }
+    if (kPair<BN>) {  // bs + 128 - 2 tx = this thread's float2 at 128 + 2 tx
+      const float2 v = *reinterpret_cast<const float2*>(bs + kk * BN + 128 - 2 * tx);
+      b[TN - 2] = v.x, b[TN - 1] = v.y;
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+  }
+}
+
+// One layer: C[M, N] = act(A[M, K] B[K, N] + bias), A row-major with row
+// stride lda (a multiple of 4, 16-byte aligned), B the (K, ldb) packing
+// of ops/mlp_head.py (W^T, ldb = round4(N), zero columns past N, 16-byte
+// aligned). A block owns a 128 x BN tile; thread (tx, ty) of its 16 x 16
+// grid owns rows {4 ty, 64 + 4 ty} + 0..3 and columns {4 tx, 64 + 4 tx}
+// + 0..3 (BN = 128), 4 tx + 0..3 (BN = 64), or those of 128 and 128 +
+// 2 tx + 0..1 (BN = 160). Both operands sit k-major in shared memory, so
+// each k step is two float4 loads of A and two (one; two and a float2) of
+// B. A is transposed on its way in: by 4-byte copies (BN = 160), or by
+// 16-byte loads of 4 k of two rows a thread into registers, issued a
+// stage ahead and stored down two columns of the next stage after the
+// current stage's FFMAs. B arrives by 16-byte cp.async a stage ahead.
+// Hidden layers (kLast = false) apply the ReLU and store rows of C up to
+// ldc = round4(N) columns (the columns past N are exact zeros); the last
+// layer stores N columns with scalar stores.
+template <int BN, bool kLast>
+__global__ void __launch_bounds__(kSgThreads, 2) head_sgemm_kernel(
+    const float* __restrict__ A, int lda, const float* __restrict__ B, int ldb,
+    const float* __restrict__ bias, float* __restrict__ C, int ldc, int M,
+    int N, int K) {
+  constexpr int TN = kTN<BN>, kBK = sgemm_bk<BN>(), S = sgemm_stages<BN>();
+  constexpr int kQuads = kQ<BN>, kGroups = kQ<BN> + (kPair<BN> ? 1 : 0);
+  extern __shared__ __align__(16) float smem[];
+  float* As = smem;                      // [S][kBK][kSgLdA]
+  float* Bs = smem + S * kBK * kSgLdA;   // [S][kBK][BN]
+  // a warp is 8 tx x 4 ty: its A loads read 4 distinct float4s and its B
+  // loads 8, one shared-memory wavefront each
+  const int tid = threadIdx.x;
+  const int tx = (tid & 7) | ((tid >> 5) & 1) << 3, ty = ((tid >> 3) & 3) | (tid >> 6) << 2;
+  const int m0 = blockIdx.x * kSgBM, n0 = blockIdx.y * BN;
+  const int nk = (K + kBK - 1) / kBK;
+
+  auto load_b = [&](int kt, int s) {
+    float* bs = Bs + s * kBK * BN;
+#pragma unroll
+    for (int r = 0; r < (kBK * BN / 4 + kSgThreads - 1) / kSgThreads; ++r) {
+      const int e = tid + r * kSgThreads, kr = e / (BN / 4), nq = (e % (BN / 4)) * 4;
+      if (kBK * BN / 4 % kSgThreads && e >= kBK * BN / 4) break;
+      const int k = kt * kBK + kr, n = n0 + nq;
+      const bool ok = k < K && n < ldb;
+      cp_async16(bs + kr * BN + nq, ok ? B + (size_t)k * ldb + n : B, ok ? 16 : 0);
+    }
+  };
+
+  float acc[8][TN];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+
+  if constexpr (async_a<BN>()) {
+    // a warp copies 16 k of two rows a step (two cache lines)
+    auto copy_a = [&](int kt, int s) {
+      float* as = As + s * kBK * kSgLdA;
+#pragma unroll
+      for (int r = 0; r < kSgBM * kBK / kSgThreads; ++r) {  // 16 copies
+        const int kr = (tid & 15) + 16 * (r >> 3), row = (tid >> 4) + 16 * (r & 7);
+        const int m = m0 + row, k = kt * kBK + kr;
+        const bool ok = m < M && k < K;
+        cp_async4(as + kr * kSgLdA + row, ok ? A + (size_t)m * lda + k : A, ok ? 4 : 0);
       }
-      if (kFirst) {
-        for (int e = tid; e < BM * kBK; e += kThreads) {
-          const int kk = e % kBK, r = e / kBK;
-          const int m = m0 + r, k = k0 + kk;
-          xs[r * (kBK + 1) + kk] =
-              (m < P && k < K) ? to_f<T>(xg[(size_t)m * K + k]) : 0.f;
+    };
+#pragma unroll
+    for (int s = 0; s < S - 1; ++s) {
+      if (s < nk) copy_a(s, s), load_b(s, s);
+      cp_async_commit();
+    }
+#pragma unroll 1
+    for (int kt = 0; kt < nk; ++kt) {
+      cp_async_wait<S - 2>();  // stage kt has landed (this thread's copies)
+      __syncthreads();         // everyone's; everyone is done with kt - 1
+      const int next = kt + S - 1;
+      if (next < nk) copy_a(next, next % S), load_b(next, next % S);
+      cp_async_commit();
+      const int s = kt % S;
+      sgemm_steps<BN, kBK>(As + s * kBK * kSgLdA + 4 * ty, Bs + s * kBK * BN + 4 * tx, tx, acc);
+    }
+  } else {
+    // 4 k of rows ar and ar + 64 a half stage h (16 k; 4 threads share a
+    // row's 64 bytes: a warp's load touches 8 cache lines)
+    constexpr int kHalves = kBK / 16;
+    const int ar = tid >> 2, ak = (tid & 3) * 4;
+    float4 st[2];
+    auto fetch_a = [&](int kt, int h) {
+      const int k = kt * kBK + 16 * h + ak;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int m = m0 + ar + 64 * r;
+        const float* src = A + (size_t)(m < M ? m : 0) * lda + k;
+        if (m < M && k + 4 <= K) {
+          st[r] = *reinterpret_cast<const float4*>(src);
+        } else {  // the ragged edge: rows past M, depth past K
+          float v[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) v[j] = m < M && k + j < K ? src[j] : 0.f;
+          st[r] = make_float4(v[0], v[1], v[2], v[3]);
         }
       }
-      __syncthreads();
-      const int kmax = min(kBK, K - k0);
-      for (int kk = 0; kk < kmax; ++kk) {
-        float a[TM], bw[kTN];
+    };
+    auto store_a = [&](int s, int h) {
+      float* as = As + (s * kBK + 16 * h + ak) * kSgLdA + ar;
 #pragma unroll
-        for (int i = 0; i < TM; ++i)
-          a[i] = kFirst ? xs[(ty * TM + i) * (kBK + 1) + kk]
-                        : to_f<T>(hin[(ty * TM + i) * lda + k0 + kk]);
-#pragma unroll
-        for (int j = 0; j < kTN; ++j) bw[j] = ws[kk * (kBN + 1) + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < TM; ++i)
-#pragma unroll
-          for (int j = 0; j < kTN; ++j) acc[i][j] = fmaf(a[i], bw[j], acc[i][j]);
+      for (int r = 0; r < 2; ++r) {
+        as[64 * r] = st[r].x;
+        as[kSgLdA + 64 * r] = st[r].y;
+        as[2 * kSgLdA + 64 * r] = st[r].z;
+        as[3 * kSgLdA + 64 * r] = st[r].w;
       }
+    };
+#pragma unroll
+    for (int h = 0; h < kHalves; ++h) fetch_a(0, h), store_a(0, h);
+    load_b(0, 0);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+#pragma unroll 1
+    for (int kt = 0; kt < nk; ++kt) {
+      const int s = kt & 1;
+      const bool more = kt + 1 < nk;
+      if (more) {  // the next stage's loads, in flight during the FFMAs
+        fetch_a(kt + 1, 0);
+        load_b(kt + 1, s ^ 1);
+      }
+      cp_async_commit();
+#pragma unroll
+      for (int h = 0; h < kHalves; ++h) {
+        sgemm_steps<BN, 16>(As + (s * kBK + 16 * h) * kSgLdA + 4 * ty,
+                            Bs + (s * kBK + 16 * h) * BN + 4 * tx, tx, acc);
+        if (more) {  // stage s ^ 1 was last read before the previous barrier
+          store_a(s ^ 1, h);
+          if (h + 1 < kHalves) fetch_a(kt + 1, h + 1);
+        }
+      }
+      cp_async_wait<0>();
       __syncthreads();
     }
+  }
+  cp_async_wait<0>();
 
+  // column group g: 4 columns at n0 + 64 g + 4 tx (g < kQ), or 2 at n0 +
+  // 128 + 2 tx (g = kQ, BN = 160); accumulator columns 4 g ..
 #pragma unroll
-    for (int j = 0; j < kTN; ++j) {
-      const int n = n0 + tx + 16 * j;
-      if (n >= N) continue;
-      const float bias = to_f<T>(b[n]);
+  for (int g = 0; g < kGroups; ++g) {
+    const int wdt = g < kQuads ? 4 : 2;
+    const int n = n0 + (g < kQuads ? 64 * g + 4 * tx : 128 + 2 * tx);
+    float bv[4];
 #pragma unroll
-      for (int i = 0; i < TM; ++i) {
-        const int r = ty * TM + i;
-        const float v = acc[i][j] + bias;
-        if (kLast) {
-          if (m0 + r < P) og[(size_t)(m0 + r) * N + n] = from_f<T>(v);
-        } else {
-          hout[r * ldo + n] = from_f<T>(fmaxf(v, 0.f));
-        }
+    for (int j = 0; j < 4; ++j) bv[j] = j < wdt && n + j < N ? bias[n + j] : 0.f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int m = m0 + (i >> 2) * 64 + 4 * ty + (i & 3);
+      if (m >= M) continue;
+      float v[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) v[j] = j < wdt ? acc[i][4 * g + j] + bv[j] : 0.f;
+      float* o = C + (size_t)m * ldc + n;
+      if (kLast) {
+#pragma unroll
+        for (int j = 0; j < wdt; ++j)
+          if (n + j < N) o[j] = v[j];
+      } else if (n < ldc && wdt == 4) {
+        *reinterpret_cast<float4*>(o) = make_float4(
+            fmaxf(v[0], 0.f), fmaxf(v[1], 0.f), fmaxf(v[2], 0.f), fmaxf(v[3], 0.f));
+      } else if (n < ldc) {
+        *reinterpret_cast<float2*>(o) = make_float2(fmaxf(v[0], 0.f), fmaxf(v[1], 0.f));
       }
     }
   }
-  __syncthreads();  // the layer's output is complete before the next reads it
 }
 
-template <typename T, int BM>
-__global__ void __launch_bounds__(kThreads) mlp_head_kernel(
-    const T* __restrict__ x,
-    const T* __restrict__ w1, const T* __restrict__ b1,
-    const T* __restrict__ w2, const T* __restrict__ b2,
-    const T* __restrict__ w3, const T* __restrict__ b3,
-    const T* __restrict__ w4, const T* __restrict__ b4,
-    T* __restrict__ out, int P, int C0, int N1, int N2, int N3, int N4) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* xs = reinterpret_cast<float*>(smem);        // [BM][kBK + 1]
-  float* ws = xs + BM * (kBK + 1);                   // [kBK][kBN + 1]
-  T* ha = reinterpret_cast<T*>(ws + kBK * (kBN + 1));  // h1, later h3
-  const int lda = max(N1, N3) + row_pad<T>();
-  T* hb = ha + BM * lda;                             // h2
-  const int ldb = N2 + row_pad<T>();
-  const int m0 = blockIdx.x * BM;
+struct SgemmShape {
+  int bn;  // 64, 128 or 160 columns a tile
+  int tiles_m, tiles_n;
+};
 
-  layer<T, BM, true, false>(x, m0, P, nullptr, 0, C0, w1, b1, N1, ha, lda,
-                            nullptr, xs, ws);
-  layer<T, BM, false, false>(nullptr, m0, P, ha, lda, N1, w2, b2, N2, hb, ldb,
-                             nullptr, xs, ws);
-  layer<T, BM, false, false>(nullptr, m0, P, hb, ldb, N2, w3, b3, N3, ha, lda,
-                             nullptr, xs, ws);
-  layer<T, BM, false, true>(nullptr, m0, P, ha, lda, N3, w4, b4, N4, nullptr,
-                            0, out, xs, ws);
+// The column tile of a layer, by estimated time: waves of two blocks an SM
+// times the work of a tile, a 128 x 64 tile counted at 75 for its fewer
+// FMAs per shared load. 128 x 128 tiles do the most FMAs per load; 128 x
+// 160 tiles (hidden layers only) cut N = 640 into 4, so layer 1 at 8000
+// rows is one wave of 252 tiles on 264 slots (315 tiles at 128, 630 at 64).
+SgemmShape pick_shape(int M, int N, int slots, bool last) {
+  const int tm = (M + kSgBM - 1) / kSgBM;
+  const int widths[3] = {128, 160, 64}, cost[3] = {128, 160, 75};
+  SgemmShape best{0, tm, 0};
+  long best_t = 0;
+  for (int i = 0; i < 3; ++i) {
+    if (last && widths[i] == 160) continue;
+    const int tn = (N + widths[i] - 1) / widths[i];
+    const long t = ((long)tm * tn + slots - 1) / slots * cost[i];
+    if (best.bn == 0 || t < best_t) best = {widths[i], tm, tn}, best_t = t;
+  }
+  return best;
 }
 
-template <typename T, int BM>
-int smem_bytes(int N1, int N2, int N3) {
-  const int lda = (N1 > N3 ? N1 : N3) + row_pad<T>();
-  const int ldb = N2 + row_pad<T>();
-  return (int)(sizeof(float) * (BM * (kBK + 1) + kBK * (kBN + 1)) +
-               sizeof(T) * BM * (lda + ldb));
-}
-
-template <typename T, int BM>
-int launch(const void* x, const void* w1, const void* b1, const void* w2,
-           const void* b2, const void* w3, const void* b3, const void* w4,
-           const void* b4, void* out, int P, int C0, int N1, int N2, int N3,
-           int N4, cudaStream_t stream) {
+template <int BN, bool kLast>
+cudaError_t launch_layer(const SgemmShape& g, const float* A, int lda,
+                         const float* B, int ldb, const float* bias, float* C,
+                         int ldc, int M, int N, int K, cudaStream_t stream) {
   static int granted = 0;
-  const int bytes = smem_bytes<T, BM>(N1, N2, N3);
-  auto kernel = mlp_head_kernel<T, BM>;
+  auto kernel = head_sgemm_kernel<BN, kLast>;
+  const int bytes = sgemm_smem_bytes<BN>();
   cudaError_t err = allow_smem(kernel, bytes, granted);
-  if (err != cudaSuccess) return (int)err;
-  if (P > 0) {
-    auto c = [](const void* p) { return static_cast<const T*>(p); };
-    kernel<<<(P + BM - 1) / BM, kThreads, bytes, stream>>>(
-        c(x), c(w1), c(b1), c(w2), c(b2), c(w3), c(b3), c(w4), c(b4),
-        static_cast<T*>(out), P, C0, N1, N2, N3, N4);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(g.tiles_m, g.tiles_n), kSgThreads, bytes, stream>>>(
+      A, lda, B, ldb, bias, C, ldc, M, N, K);
+  return cudaGetLastError();
+}
+
+// The ladder as four launches; h1 and h3 in scratch[0 : P x lda], h2 in
+// scratch[P x lda :], lda = round4(max(N1, N3)), ldb = round4(N2).
+int launch_f32(const float* x, const float* const* wt, const float* const* b,
+               float* out, float* scratch, int P, const int* k, const int* n,
+               cudaStream_t stream) {
+  if (P == 0) return (int)cudaGetLastError();
+  const int lda = round4(n[0] > n[2] ? n[0] : n[2]), ldb = round4(n[1]);
+  float* ha = scratch;
+  float* hb = scratch + (size_t)P * lda;
+  const float* in[4] = {x, ha, hb, ha};
+  const int ld_in[4] = {k[0], lda, ldb, lda};
+  float* outs[3] = {ha, hb, ha};
+  const int ld_out[3] = {lda, ldb, lda};
+  const int slots = block_slots(2);  // __launch_bounds__(256, 2)
+  for (int l = 0; l < 4; ++l) {
+    const SgemmShape g = pick_shape(P, n[l], slots, l == 3);
+    const int ldw = round4(n[l]);
+    cudaError_t err;
+    if (l == 3)
+      err = g.bn == 128
+                ? launch_layer<128, true>(g, in[l], ld_in[l], wt[l], ldw, b[l],
+                                          out, n[l], P, n[l], k[l], stream)
+                : launch_layer<64, true>(g, in[l], ld_in[l], wt[l], ldw, b[l],
+                                         out, n[l], P, n[l], k[l], stream);
+    else if (g.bn == 160)
+      err = launch_layer<160, false>(g, in[l], ld_in[l], wt[l], ldw, b[l], outs[l],
+                                     ld_out[l], P, n[l], k[l], stream);
+    else
+      err = g.bn == 128
+                ? launch_layer<128, false>(g, in[l], ld_in[l], wt[l], ldw, b[l],
+                                           outs[l], ld_out[l], P, n[l], k[l], stream)
+                : launch_layer<64, false>(g, in[l], ld_in[l], wt[l], ldw, b[l],
+                                          outs[l], ld_out[l], P, n[l], k[l], stream);
+    if (err != cudaSuccess) return (int)err;
   }
-  return (int)cudaGetLastError();
+  return (int)cudaSuccess;
 }
 
 }  // namespace
@@ -453,26 +646,33 @@ int launch_wgmma(const void* x, const void* const* w, const void* const* b,
 }  // namespace
 }  // namespace plr2
 
-// x (P, C0); wi (Ni, N(i-1)); bi (Ni,); out (P, N4); all contiguous, one
-// dtype. bf16: the wgmma kernel; C0, N1, N2, N3 multiples of 8 and every
-// pointer 16-byte aligned (ops/mlp_head.py checks), any P and N4. f32: the
-// scalar kernel, 32 rows per block; any widths whose activations fit in
-// shared memory. Widths whose shared memory exceeds what a block may use
-// make the launch fail with cudaErrorInvalidValue.
+// x (P, C0); bi (Ni,); out (P, N4); all contiguous, one dtype. bf16: wi
+// (Ni, N(i-1)), the wgmma kernel; C0, N1, N2, N3 multiples of 8 and every
+// pointer 16-byte aligned (ops/mlp_head.py checks), any P and N4; scratch
+// unused. f32: wi packed as W^T (round4(N(i-1)), round4(Ni)) with zeros
+// past N(i-1) and Ni (ops/mlp_head.py `pack_weights_f32`), four
+// register-tiled SGEMM launches; C0 a multiple of 4 (the wrapper pads x),
+// x and the packed weights 16-byte aligned, scratch P x (round4(max(N1,
+// N3)) + round4(N2)) floats for h1-h3, any P and N1..N4.
 extern "C" int plr2_mlp_head(int dtype, const void* x, const void* w1,
                              const void* b1, const void* w2, const void* b2,
                              const void* w3, const void* b3, const void* w4,
-                             const void* b4, void* out, int P, int C0, int N1,
-                             int N2, int N3, int N4, void* stream) {
+                             const void* b4, void* out, void* scratch, int P,
+                             int C0, int N1, int N2, int N3, int N4,
+                             void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int k[4] = {C0, N1, N2, N3}, n[4] = {N1, N2, N3, N4};
   if (dtype == plr2::kBF16) {
     const void* w[4] = {w1, w2, w3, w4};
     const void* b[4] = {b1, b2, b3, b4};
-    const int k[4] = {C0, N1, N2, N3}, n[4] = {N1, N2, N3, N4};
     return plr2::launch_wgmma(x, w, b, out, P, k, n, s);
   }
-  if (dtype == plr2::kF32)
-    return plr2::launch<float, 32>(x, w1, b1, w2, b2, w3, b3, w4, b4, out, P,
-                                   C0, N1, N2, N3, N4, s);
+  if (dtype == plr2::kF32) {
+    auto f = [](const void* p) { return static_cast<const float*>(p); };
+    const float* w[4] = {f(w1), f(w2), f(w3), f(w4)};
+    const float* b[4] = {f(b1), f(b2), f(b3), f(b4)};
+    return plr2::launch_f32(f(x), w, b, static_cast<float*>(out),
+                            static_cast<float*>(scratch), P, k, n, s);
+  }
   return (int)cudaErrorInvalidValue;
 }

@@ -69,150 +69,30 @@
 // Widths: Cin must be a multiple of 8 (16-byte TMA strides; the wrapper
 // checks); any B, H, W and Cout.
 //
-// f32: scalar FP32 FMAs (upconv_kernel below), simple first: a block
-// owns an 8 x 16 tile and 64 output channels, forms the upsampled 10 x 18
-// patch for each chunk of 16 input channels in shared memory, and each
-// thread accumulates 8 pixels x 4 channels in f32.
+// f32: an implicit GEMM on the FP32 cores (upconv_sgemm_kernel below).
+// f32 stays full f32 (no TF32), so the bound is the FFMA rate: 67 TFLOP/s,
+// 1.35 ms for the three stages at batch 8. An SM issues 128 FFMAs but
+// loads 32 words of shared memory a clock, so the design is about reuse.
+// A block owns 8 x 8 output pixels x 256 channels, 8 x 16 x 128 (Cout >=
+// 128; pick_f32_tile takes the shape with fewer waves: 40-pixel rows fill
+// 8-wide tiles) or 16 x 16 x 64 (Cout < 128: up_2, up_3); each thread 8
+// consecutive pixels of a row x 8 channels (64 accumulators). For each
+// input channel and kernel row dy a thread loads its 10 patch values once
+// (two float4s and a float2: the patch is channel-planar, [c][y][x] in
+// padded rows) and the three dx taps' 8 weights (two float4s each; the
+// packed weights keep Cout contiguous): 192 FFMAs for 9 loads, none
+// bank-conflicted. Input channels come in chunks of 8 (4 for the 256-wide
+// tile): the chunk's low-res footprint and its 9 x CK x NB weights arrive
+// by cp.async into a two-stage ring while the previous chunk's FFMAs run;
+// then the block blends the footprint from shared memory into the patch
+// (the same rounded products and sums as the plain version, so the patch
+// is bit-equal to its upsampled map) and runs the chunk. Two barriers a
+// chunk; 54-84 KB of shared memory and at most 128 registers a thread:
+// two blocks an SM. The weights are read as the (9, Cin, round4(Cout))
+// packing of ops/upconv.py `pack_weights_f32`, a view of HWIO when Cout is
+// a multiple of 4. Any B, H, W, Cin and Cout: the footprint comes in
+// 4-byte copies where Cin is not a multiple of 4.
 #include "common.cuh"
-
-// ---------------------------------------------------------------------------
-// f32: the scalar kernel (see the header note).
-
-namespace plr2 {
-namespace {
-
-constexpr int kThreads = 256;
-constexpr int kTH = 8, kTW = 16;            // output tile (2x resolution)
-constexpr int kPH = kTH + 2, kPW = kTW + 2; // with the conv halo
-constexpr int kCO = 64;                     // output channels per block
-constexpr int kCK = 16;                     // input channels per chunk
-constexpr int kUS = kCK + 1;                // padded pixel stride in smem
-constexpr int kSmemBytes = (int)sizeof(float) * (kPH * kPW * kUS + 9 * kCK * kCO);
-
-// source taps of 2x-map coordinate Y (0 <= Y < 2n): rows (a, b), weights (wa, wb)
-__device__ __forceinline__ void taps(int Y, int n, int& a, int& b, float& wa,
-                                     float& wb) {
-  const int t = Y >> 1;
-  if (Y & 1) {
-    a = t; b = min(t + 1, n - 1); wa = 0.75f; wb = 0.25f;
-  } else {
-    a = max(t - 1, 0); b = t; wa = 0.25f; wb = 0.75f;
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads) upconv_kernel(
-    const T* __restrict__ x, const T* __restrict__ w,
-    const T* __restrict__ bias, const T* __restrict__ alpha,
-    T* __restrict__ out, int H, int W, int Cin, int Cout) {
-  extern __shared__ __align__(16) float smem[];
-  float* us = smem;                       // [kPH][kPW][kUS] upsampled patch
-  float* wsm = smem + kPH * kPW * kUS;    // [9][kCK][kCO] weights
-  const int H2 = 2 * H, W2 = 2 * W;
-  const int tiles_w = (W2 + kTW - 1) / kTW;
-  const int oy0 = (blockIdx.x / tiles_w) * kTH;
-  const int ox0 = (blockIdx.x % tiles_w) * kTW;
-  const int co0 = blockIdx.y * kCO;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int py = ty >> 1, px0 = (ty & 1) * 8;  // this thread: 8 pixels of one row
-  const T* xb = x + (size_t)b * H * W * Cin;
-
-  float acc[8][4];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int c0 = 0; c0 < Cin; c0 += kCK) {
-    for (int e = tid; e < kPH * kPW * kCK; e += kThreads) {
-      const int c = e % kCK, q = e / kCK;
-      const int Y = oy0 - 1 + q / kPW, X = ox0 - 1 + q % kPW, ci = c0 + c;
-      float v = 0.f;  // the conv's zero padding, and channels past Cin
-      if (Y >= 0 && Y < H2 && X >= 0 && X < W2 && ci < Cin) {
-        int ya, yb, xa, xc;
-        float wya, wyb, wxa, wxc;
-        taps(Y, H, ya, yb, wya, wyb);
-        taps(X, W, xa, xc, wxa, wxc);
-        const float r0 = wxa * to_f<T>(xb[((size_t)ya * W + xa) * Cin + ci]) +
-                         wxc * to_f<T>(xb[((size_t)ya * W + xc) * Cin + ci]);
-        const float r1 = wxa * to_f<T>(xb[((size_t)yb * W + xa) * Cin + ci]) +
-                         wxc * to_f<T>(xb[((size_t)yb * W + xc) * Cin + ci]);
-        v = round_to<T>(wya * r0 + wyb * r1);
-      }
-      us[q * kUS + c] = v;
-    }
-    for (int e = tid; e < 9 * kCK * kCO; e += kThreads) {
-      const int co = e % kCO, q = e / kCO;
-      const int c = q % kCK, tap = q / kCK;
-      const int ci = c0 + c, o = co0 + co;
-      wsm[e] = (ci < Cin && o < Cout)
-                   ? to_f<T>(w[((size_t)tap * Cin + ci) * Cout + o])
-                   : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 1
-    for (int tap = 0; tap < 9; ++tap) {
-      const int dy = tap / 3, dx = tap % 3;
-      const float* urow = us + ((py + dy) * kPW + px0 + dx) * kUS;
-      const float* wt = wsm + tap * kCK * kCO + tx;
-#pragma unroll 4
-      for (int c = 0; c < kCK; ++c) {
-        float wv[4], uv[8];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) wv[j] = wt[c * kCO + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 8; ++i) uv[i] = urow[i * kUS + c];
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(uv[i], wv[j], acc[i][j]);
-      }
-    }
-    __syncthreads();
-  }
-
-  const float a = to_f<T>(alpha[0]);
-  const int oy = oy0 + py;
-  if (oy >= H2) return;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int o = co0 + tx + 16 * j;
-    if (o >= Cout) continue;
-    const float bv = to_f<T>(bias[o]);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int ox = ox0 + px0 + i;
-      if (ox >= W2) continue;
-      float v = acc[i][j] + bv;
-      v = v >= 0.f ? v : a * v;
-      out[(((size_t)b * H2 + oy) * W2 + ox) * Cout + o] = from_f<T>(v);
-    }
-  }
-}
-
-template <typename T>
-int launch(const void* x, const void* w, const void* bias, const void* alpha,
-           void* out, int B, int H, int W, int Cin, int Cout,
-           cudaStream_t stream) {
-  static int granted = 0;
-  auto kernel = upconv_kernel<T>;
-  cudaError_t err = allow_smem(kernel, kSmemBytes, granted);
-  if (err != cudaSuccess) return (int)err;
-  if (B > 0 && H > 0 && W > 0 && Cout > 0) {
-    const int tiles = ((2 * H + kTH - 1) / kTH) * ((2 * W + kTW - 1) / kTW);
-    dim3 grid(tiles, (Cout + kCO - 1) / kCO, B);
-    kernel<<<grid, kThreads, kSmemBytes, stream>>>(
-        static_cast<const T*>(x), static_cast<const T*>(w),
-        static_cast<const T*>(bias), static_cast<const T*>(alpha),
-        static_cast<T*>(out), H, W, Cin, Cout);
-  }
-  return (int)cudaGetLastError();
-}
-
-}  // namespace
-}  // namespace plr2
-
 
 // ---------------------------------------------------------------------------
 // bf16: wgmma + TMA (see the header note).
@@ -466,10 +346,239 @@ int launch_wgmma(const void* x, const void* wp, const void* bias,
 }  // namespace
 }  // namespace plr2
 
+// ---------------------------------------------------------------------------
+// f32: an implicit GEMM on the FP32 cores (see the header note).
+
+namespace plr2 {
+namespace {
+
+constexpr int kUpThreads = 256;
+
+// A block owns a TH x TW tile of output pixels and NB output channels and
+// takes the input channels in chunks of CK.
+template <int TH, int TW, int NB, int CK>
+struct UpF32 {
+  static constexpr int kPH = TH + 2, kPW = TW + 2;  // patch: tile + conv halo
+  static constexpr int kPWs = (kPW + 3) & ~3;       // its row stride (floats)
+  static constexpr int kLH = TH / 2 + 2, kLW = TW / 2 + 2;  // low-res footprint
+  static constexpr int kGroups = NB / 8;                    // channel groups
+  static_assert(TH * TW / 8 * kGroups == kUpThreads, "8 px x 8 ch a thread");
+  static constexpr int kW = 9 * CK * NB;        // weight stage [9][CK][NB]
+  static constexpr int kLow = kLH * kLW * CK;   // footprint [pixel][CK]
+  static constexpr int kPatch = CK * kPH * kPWs;  // patch [CK][PH][PWs]
+  static constexpr int kBytes = (int)sizeof(float) * (2 * (kW + kLow) + kPatch);
+};
+
+// x NHWC (B, H, W, Cin); w the (9, Cin, ldw) packing of ops/upconv.py
+// `pack_weights_f32` (ldw = round4(Cout), zeros past Cout); out NHWC
+// (B, 2H, 2W, Cout); x and w 16-byte aligned. vec16: Cin % 4 == 0, so the
+// footprint arrives in 16-byte copies (else 4-byte ones).
+template <int TH, int TW, int NB, int CK>
+__global__ void __launch_bounds__(kUpThreads, 2) upconv_sgemm_kernel(
+    const float* __restrict__ x, const float* __restrict__ w,
+    const float* __restrict__ bias, const float* __restrict__ alpha,
+    float* __restrict__ out, int H, int W, int Cin, int Cout, int ldw,
+    int vec16) {
+  using Cfg = UpF32<TH, TW, NB, CK>;
+  constexpr int PH = Cfg::kPH, PW = Cfg::kPW, PWs = Cfg::kPWs;
+  constexpr int LH = Cfg::kLH, LW = Cfg::kLW;
+  extern __shared__ __align__(16) float smem[];
+  float* wsm = smem;                    // 2 weight stages
+  float* low = wsm + 2 * Cfg::kW;       // 2 footprints
+  float* patch = low + 2 * Cfg::kLow;   // the upsampled patch
+
+  const int H2 = 2 * H, W2 = 2 * W;
+  const int tiles_w = (W2 + TW - 1) / TW;
+  const int oy0 = (blockIdx.x / tiles_w) * TH, ox0 = (blockIdx.x % tiles_w) * TW;
+  const int ly0 = oy0 / 2 - 1, lx0 = ox0 / 2 - 1;  // footprint origin
+  const int co0 = blockIdx.y * NB, b = blockIdx.z;
+  const int tid = threadIdx.x;
+  // a warp is 8 channel groups x 4 pixel groups: its weight loads read 8
+  // distinct float4s and its patch loads 4, one shared-memory wavefront each
+  const int lane = tid & 31, warp = tid >> 5;
+  const int cg = (lane & 7) + 8 * (warp % (Cfg::kGroups / 8));
+  const int pg = (lane >> 3) + 4 * (warp / (Cfg::kGroups / 8));
+  const int py = pg / (TW / 8), px0 = (pg % (TW / 8)) * 8;  // 8 pixels of a row
+  const float* xb = x + (size_t)b * H * W * Cin;
+  const int nk = (Cin + CK - 1) / CK;
+
+  auto load = [&](int c, int s) {
+    const int c0 = c * CK;
+    float* ws = wsm + s * Cfg::kW;
+    for (int e = tid; e < 9 * CK * NB / 4; e += kUpThreads) {
+      const int q = e % (NB / 4), r = e / (NB / 4);  // r = tap * CK + ci
+      const int tap = r / CK, ci = c0 + r % CK, co = co0 + 4 * q;
+      const bool ok = ci < Cin && co < ldw;
+      cp_async16(ws + r * NB + 4 * q,
+                 ok ? w + ((size_t)tap * Cin + ci) * ldw + co : w, ok ? 16 : 0);
+    }
+    float* lo = low + s * Cfg::kLow;
+    if (vec16) {
+      for (int e = tid; e < LH * LW * CK / 4; e += kUpThreads) {
+        const int h = e % (CK / 4), p = e / (CK / 4);
+        const int yy = ly0 + p / LW, xx = lx0 + p % LW, ci = c0 + 4 * h;
+        const int n = yy >= 0 && yy < H && xx >= 0 && xx < W
+                          ? max(0, min(4, Cin - ci)) : 0;
+        cp_async16(lo + p * CK + 4 * h,
+                   n ? xb + ((size_t)yy * W + xx) * Cin + ci : xb, 4 * n);
+      }
+    } else {
+      for (int e = tid; e < LH * LW * CK; e += kUpThreads) {
+        const int j = e % CK, p = e / CK;
+        const int yy = ly0 + p / LW, xx = lx0 + p % LW, ci = c0 + j;
+        const bool ok = yy >= 0 && yy < H && xx >= 0 && xx < W && ci < Cin;
+        cp_async4(lo + p * CK + j, ok ? xb + ((size_t)yy * W + xx) * Cin + ci : xb,
+                  ok ? 4 : 0);
+      }
+    }
+  };
+
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+  load(0, 0);
+  cp_async_commit();
+#pragma unroll 1
+  for (int c = 0; c < nk; ++c) {
+    const int s = c & 1;
+    cp_async_wait<0>();  // chunk c has landed (this thread's copies)
+    __syncthreads();     // everyone's; everyone is done with chunk c - 1
+    if (c + 1 < nk) load(c + 1, s ^ 1);
+    cp_async_commit();
+
+    // the upsampled patch of chunk c from its footprint: clamped sources,
+    // zeros outside the 2x map (the conv's padding) and past Cin
+    const float* lo = low + s * Cfg::kLow;
+    for (int e = tid; e < CK * PH * PW; e += kUpThreads) {
+      const int ci = e / (PH * PW), q = e % (PH * PW);
+      const int qy = q / PW, qx = q % PW;
+      const int Y = oy0 - 1 + qy, X = ox0 - 1 + qx;
+      float v = 0.f;
+      if (Y >= 0 && Y < H2 && X >= 0 && X < W2) {
+        int ya, yb, xa, xc;
+        float wya, wyb, wxa, wxc;
+        src_taps(Y, H, ya, yb, wya, wyb);
+        src_taps(X, W, xa, xc, wxa, wxc);
+        ya -= ly0; yb -= ly0; xa -= lx0; xc -= lx0;
+        const float r0 = blend(wxa, lo[(ya * LW + xa) * CK + ci], wxc,
+                                   lo[(ya * LW + xc) * CK + ci]);
+        const float r1 = blend(wxa, lo[(yb * LW + xa) * CK + ci], wxc,
+                                   lo[(yb * LW + xc) * CK + ci]);
+        v = blend(wya, r0, wyb, r1);
+      }
+      patch[(ci * PH + qy) * PWs + qx] = v;
+    }
+    __syncthreads();  // the patch is complete
+
+    const float* ws = wsm + s * Cfg::kW + 4 * cg;
+#pragma unroll 1
+    for (int ci = 0; ci < CK; ++ci) {
+#pragma unroll
+      for (int dy = 0; dy < 3; ++dy) {
+        // this thread's 10 patch values of row py + dy: x = px0 .. px0 + 9
+        const float* pr = patch + (ci * PH + py + dy) * PWs + px0;
+        const float4 p0 = *reinterpret_cast<const float4*>(pr);
+        const float4 p1 = *reinterpret_cast<const float4*>(pr + 4);
+        const float2 p2 = *reinterpret_cast<const float2*>(pr + 8);
+        const float p[10] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w,
+                             p2.x, p2.y};
+#pragma unroll
+        for (int dx = 0; dx < 3; ++dx) {
+          const float* wr = ws + ((dy * 3 + dx) * CK + ci) * NB;
+          const float4 w0 = *reinterpret_cast<const float4*>(wr);
+          const float4 w1 = *reinterpret_cast<const float4*>(wr + NB / 2);
+          const float wv[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+#pragma unroll
+            for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(p[i + dx], wv[j], acc[i][j]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  const float a = alpha[0];
+  const int oy = oy0 + py;
+  if (oy >= H2) return;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int co = co0 + h * (NB / 2) + 4 * cg;
+    if (co >= Cout) continue;
+    float bv[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) bv[j] = co + j < Cout ? bias[co + j] : 0.f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int ox = ox0 + px0 + i;
+      if (ox >= W2) continue;
+      float v[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        v[j] = acc[i][4 * h + j] + bv[j];
+        v[j] = v[j] >= 0.f ? v[j] : a * v[j];
+      }
+      float* o = out + (((size_t)b * H2 + oy) * W2 + ox) * Cout + co;
+      if ((Cout & 3) == 0) {
+        *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (co + j < Cout) o[j] = v[j];
+      }
+    }
+  }
+}
+
+template <int TH, int TW, int NB, int CK>
+int launch_f32(const void* x, const void* w, const void* bias, const void* alpha,
+               void* out, int B, int H, int W, int Cin, int Cout,
+               cudaStream_t stream) {
+  static int granted = 0;
+  using Cfg = UpF32<TH, TW, NB, CK>;
+  auto kernel = upconv_sgemm_kernel<TH, TW, NB, CK>;
+  cudaError_t err = allow_smem(kernel, Cfg::kBytes, granted);
+  if (err != cudaSuccess) return (int)err;
+  if (B > 0 && H > 0 && W > 0 && Cout > 0) {
+    const int tiles = ((2 * H + TH - 1) / TH) * ((2 * W + TW - 1) / TW);
+    dim3 grid(tiles, (Cout + NB - 1) / NB, B);
+    kernel<<<grid, kUpThreads, Cfg::kBytes, stream>>>(
+        static_cast<const float*>(x), static_cast<const float*>(w),
+        static_cast<const float*>(bias), static_cast<const float*>(alpha),
+        static_cast<float*>(out), H, W, Cin, Cout, (Cout + 3) & ~3, Cin % 4 == 0);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The f32 tile for a stage: 0 = 8 x 8 px x 256 channels, 1 = 8 x 16 x 128,
+// 2 = 16 x 16 x 64 (Cout < 128). All three do the same work a block, so
+// the choice is by waves of two blocks an SM: up_1's 40-pixel rows take
+// three 16-wide tiles (48 columns) but five 8-wide ones; the 8 x 8 x 256
+// tile runs about 5% slower a block (four shared-memory wavefronts a
+// weight load, chunks of 4), so it is taken only for fewer waves.
+int pick_f32_tile(int B, int H, int W, int Cout) {
+  if (Cout < 128) return 2;
+  const long slots = block_slots(2);
+  auto waves = [&](int th, int tw, int nb) {
+    const long blocks = (long)B * ((2 * H + th - 1) / th) * ((2 * W + tw - 1) / tw) *
+                        ((Cout + nb - 1) / nb);
+    return (blocks + slots - 1) / slots;
+  };
+  return Cout >= 256 && 20 * waves(8, 8, 256) < 19 * waves(8, 16, 128) ? 0 : 1;
+}
+
+}  // namespace
+}  // namespace plr2
+
 // x (B, H, W, Cin), bias (Cout,), alpha (1,) on the device; out (B, 2H, 2W,
-// Cout); all contiguous, one dtype. w: f32, HWIO (3, 3, Cin, Cout); bf16,
-// the (9, Cout, Cin) packing of ops/upconv.py `pack_weights` (tap-major,
-// K-major rows), with Cin a multiple of 8 and every pointer 16-byte aligned.
+// Cout); all contiguous, one dtype, x and w 16-byte aligned. w: f32, the
+// (9, Cin, round4(Cout)) packing of ops/upconv.py `pack_weights_f32`, any
+// widths; bf16, the (9, Cout, Cin) packing of ops/upconv.py `pack_weights`
+// (tap-major, K-major rows), with Cin a multiple of 8 and every pointer
+// 16-byte aligned.
 extern "C" int plr2_upconv3x3_prelu(int dtype, const void* x, const void* w,
                                     const void* bias, const void* alpha,
                                     void* out, int B, int H, int W, int Cin,
@@ -480,7 +589,14 @@ extern "C" int plr2_upconv3x3_prelu(int dtype, const void* x, const void* w,
                ? plr2::launch_wgmma<256>(x, w, bias, alpha, out, B, H, W, Cin, Cout, s)
                : plr2::launch_wgmma<64>(x, w, bias, alpha, out, B, H, W, Cin, Cout, s);
   if (dtype == plr2::kF32)
-    return plr2::launch<float>(x, w, bias, alpha, out, B, H, W, Cin, Cout, s);
+    switch (plr2::pick_f32_tile(B, H, W, Cout)) {
+      case 0:
+        return plr2::launch_f32<8, 8, 256, 4>(x, w, bias, alpha, out, B, H, W, Cin, Cout, s);
+      case 1:
+        return plr2::launch_f32<8, 16, 128, 8>(x, w, bias, alpha, out, B, H, W, Cin, Cout, s);
+      default:
+        return plr2::launch_f32<16, 16, 64, 8>(x, w, bias, alpha, out, B, H, W, Cin, Cout, s);
+    }
   return (int)cudaErrorInvalidValue;
 }
 

@@ -38,7 +38,7 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
 _SIGNATURES = {
-    "plr2_mlp_head": [_I] + [_P] * 10 + [_I] * 6 + [_P],
+    "plr2_mlp_head": [_I] + [_P] * 11 + [_I] * 6 + [_P],
     "plr2_upconv3x3_prelu": [_I] + [_P] * 5 + [_I] * 5 + [_P],
     "plr2_nn_argmin": [_P] * 3 + [_I] * 3 + [_P],
     "plr2_nn_match": [_P] * 3 + [_I] * 3 + [_P],

@@ -6,6 +6,12 @@ bounds it on the H100 and how it is built: bf16 on the tensor cores
 (``wgmma`` fed by TMA), f32 on the FP32 cores. The bf16 kernel pads every
 width to 64 on chip (TMA reads zeros past an edge), so it needs no padded
 copies; it needs C, N1, N2 and N3 to be multiples of 8 (``tc_widths``).
+The f32 kernel is one register-tiled SGEMM launch per layer: it reads
+each layer's weights as W^T padded to multiples of 4
+(``pack_weights_f32``, packed at every call) and x with its columns
+padded to a multiple of 4 (``pad_x_f32``: a copy only where C is not
+one), and keeps h1-h3 in a scratch tensor of ``scratch_floats`` floats
+that the wrapper takes from torch's caching allocator; any widths.
 
 Weights are in the torch ``Linear`` / ``Conv1d`` layout, (out, in): the
 PoseNet heads hold ``Conv1d`` weights of shape (out, in, 1), viewed as
@@ -80,24 +86,60 @@ def tc_widths(x: torch.Tensor, params: Params) -> None:
         f"x {tuple(x.shape)} and weights {[tuple(w.shape) for w, _ in params]}")
 
 
+def _round4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def pack_weights_f32(params: Params) -> list:
+    """(w (N, K), b) -> (W^T (round4(K), round4(N)), b): the f32 kernel's B
+    operand, rows of 16 bytes that it copies into shared memory 4 columns
+    at a time. The padding is zeros: the hidden columns past N come out as
+    relu(0 + 0) = 0, and the rows past K meet x's zero padding
+    (``pad_x_f32``). Every packed tensor starts on 16 bytes."""
+    return [(_build.aligned16(F.pad(w.t(), (0, _round4(w.shape[0]) - w.shape[0],
+                                            0, _round4(w.shape[1]) - w.shape[1]))
+                              .contiguous()), b) for w, b in params]
+
+
+def pad_x_f32(x: torch.Tensor) -> torch.Tensor:
+    """x with its columns zero-padded to a multiple of 4 (a copy only when C
+    is not one), so the f32 kernel loads rows of x 16 bytes at a time;
+    16-byte aligned."""
+    pad = -x.shape[1] % 4
+    return _build.aligned16(F.pad(x, (0, pad)) if pad else x)
+
+
+def scratch_floats(rows: int, widths: Sequence[int]) -> int:
+    """Floats of the f32 kernel's scratch for widths (C, N1, N2, N3, N4):
+    h1 and then h3 in rows of round4(max(N1, N3)), h2 beside them in rows
+    of round4(N2), as csrc/mlp_head.cu `launch_f32` lays them out."""
+    return rows * (_round4(max(widths[1], widths[3])) + _round4(widths[2]))
+
+
 def mlp_head_forward(x: torch.Tensor, params: Params) -> torch.Tensor:
     """The ladder through the CUDA kernel (plain PyTorch for CPU tensors)."""
     global launches
     if x.device.type == "cpu":
         return mlp_head_plain(x, params)
     _check(x, params)
+    n1, n2, n3, n4 = (w.shape[0] for w, _ in params)
+    scratch = None
     if x.dtype == torch.bfloat16:
         tc_widths(x, params)
         x = _build.aligned16(x)
         params = [(_build.aligned16(w), b) for w, b in params]
+    else:
+        x = pad_x_f32(x)
+        params = pack_weights_f32(params)
+        scratch = torch.empty(scratch_floats(x.shape[0], (x.shape[1], n1, n2, n3, n4)),
+                              device=x.device, dtype=x.dtype)
     (w1, b1), (w2, b2), (w3, b3), (w4, b4) = params
-    n1, n2, n3, n4 = (w.shape[0] for w, _ in params)
     out = torch.empty((x.shape[0], n4), device=x.device, dtype=x.dtype)
     err = _build.lib().plr2_mlp_head(
         _build.DTYPE_CODES[x.dtype], x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
         b2.data_ptr(), w3.data_ptr(), b3.data_ptr(), w4.data_ptr(),
-        b4.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1], n1, n2, n3, n4,
-        _build.stream_of(x))
+        b4.data_ptr(), out.data_ptr(), 0 if scratch is None else scratch.data_ptr(),
+        x.shape[0], x.shape[1], n1, n2, n3, n4, _build.stream_of(x))
     _build.check(err, "mlp_head")
     launches += 1
     return out

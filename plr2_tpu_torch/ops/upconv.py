@@ -5,8 +5,10 @@ Replaces the TPU kernel ``plr2_tpu/ops/pallas_upsample.py``
 whose header says what bounds it on the H100 (operations) and what its
 design does about it: bf16 is an implicit GEMM on the tensor cores
 (``wgmma`` fed by TMA) that reads the weights as ``pack_weights`` lays
-them out and needs Cin to be a multiple of 8 (``tc_widths``); f32 runs on
-the FP32 cores and reads HWIO. Same signature as the JAX kernel: x NHWC
+them out and needs Cin to be a multiple of 8 (``tc_widths``); f32 is an
+implicit GEMM on the FP32 cores that reads the weights as
+``pack_weights_f32`` lays them out (HWIO itself when Cout is a multiple
+of 4) and takes any widths. Same signature as the JAX kernel: x NHWC
 (B, H, W, Cin), w HWIO (3, 3, Cin, Cout), bias (Cout,), alpha a
 one-element tensor; returns (B, 2H, 2W, Cout).
 
@@ -86,6 +88,17 @@ def pack_weights(w: torch.Tensor) -> torch.Tensor:
     return w.permute(0, 1, 3, 2).reshape(9, cout, cin).contiguous()
 
 
+def pack_weights_f32(w: torch.Tensor) -> torch.Tensor:
+    """HWIO (3, 3, Cin, Cout) -> (9, Cin, round4(Cout)): one (Cin, Cout)
+    matrix per tap (tap = 3 dy + dx), Cout contiguous and zero-padded to a
+    multiple of 4, so the f32 kernel copies weight rows 16 bytes at a time.
+    Without padding this is a view of w (no copy)."""
+    cin, cout = w.shape[2], w.shape[3]
+    wp = w.reshape(9, cin, cout)
+    pad = -cout % 4
+    return F.pad(wp, (0, pad)) if pad else wp
+
+
 def tc_widths(x: torch.Tensor, w: torch.Tensor) -> None:
     """Raise ValueError unless the bf16 kernel takes these widths: Cin is
     the row of x and of the packed weights that TMA loads, so it must be a
@@ -107,7 +120,10 @@ def upconv3x3_prelu_forward(x: torch.Tensor, w: torch.Tensor,
     cout = w.shape[3]
     if x.dtype == torch.bfloat16:
         tc_widths(x, w)
-        x, w = _build.aligned16(x), _build.aligned16(pack_weights(w))
+        w = pack_weights(w)
+    else:
+        w = pack_weights_f32(w)
+    x, w = _build.aligned16(x), _build.aligned16(w)
     out = torch.empty((b, 2 * h, 2 * wd, cout), device=x.device, dtype=x.dtype)
     err = _build.lib().plr2_upconv3x3_prelu(
         _build.DTYPE_CODES[x.dtype], x.data_ptr(), w.data_ptr(),
