@@ -11,7 +11,9 @@ non-zero, and there is no CPU fallback:
    git-ignored plr2_tpu_torch/_build/) and prints the wall time; scans
    the library's SASS (cuobjdump, beside nvcc): each bf16 tensor-core
    kernel must hold HGMMA (wgmma) instructions, each f32 kernel FFMA and
-   no HMMA or HGMMA (no TF32 on the tensor cores).
+   no HMMA or HGMMA (no TF32 on the tensor cores), each instantiation of
+   the int8 ladder IGMMA (s8 wgmma) and no IMMA (mma.sync), and no knn
+   kernel any tensor-core instruction.
 3. kernels: each CUDA kernel against its plain PyTorch version on the card,
    in f32 and bf16, at the shapes the main path gives it (batch 8; f32
    also at batch 128, where it picks other tiles); then both dtypes at
@@ -22,7 +24,8 @@ non-zero, and there is no CPU fallback:
 4. knn: the three ADD-S nearest-neighbour kernels (nn_match, nn_argmin,
    nn_match_mxu) against their plain twins at the stage-1 shape (5
    symmetric samples x 500k queries x 500 targets) and at YCB's 2600-point
-   large mesh, plus duplicate targets (the first index must win).
+   large mesh, plus duplicate targets at both sizes (the first index must
+   win) and a ragged size (10,007 queries x 1029 targets).
 5. gradients: the mlp_head and upconv3x3_prelu autograd Functions against
    autograd of their plain versions at the training shapes (batch 32).
 6. main path: DenseFusionPipeline.estimate at YCB width (21 objects, 1000
@@ -51,8 +54,12 @@ non-zero, and there is no CPU fallback:
    launch counts of the path, the kernel against its plain version in both
    rounding modes (exact), determinism per seed, accuracy against the f32
    head kernel (tests/test_quant.py's bounds), a small ladder of another
-   depth at 40 rows; times at batch 8 and 128 beside the f32 and bf16 head
-   kernels, the plain version, a torch._int_mm chain and the bound.
+   depth at 40 rows; exactness in both modes also at batch 128 (128,000
+   rows), on random rows of the YCB widths at 977 rows, on a ragged ladder
+   (200 -> 72 -> 40 -> 24 -> 5) and on x of 202 columns; times at batch 8
+   and 128 (stochastic rounding, the op's default, and to nearest) beside
+   the f32 and bf16 head kernels, the plain version, a torch._int_mm
+   chain and the bound.
 
 The second-to-last line is a JSON object with one entry per kernel and
 dtype; the last line is {"ok": true, "device": {...}}.
@@ -123,6 +130,11 @@ STEP_TOL = {"loss": 1e-5, "grad_l2": 1e-3, "bn": (1e-5, 1e-4)}
 QUANT_SEED = 1234
 QUANT_ACC = {"median": 0.05, "mean": 0.15}
 QUANT_SMALL, QUANT_SMALL_ROWS = (128, 64, 32, 16), 40  # tests/test_quant.py
+# and ragged ladders at 977 rows (no whole 64-row block): the YCB widths
+# on random rows, widths of no multiple of 16 or 128, and x of 202 columns
+# (not a multiple of 4: scalar loads, weights padded by the wrapper)
+QUANT_RAGGED = [(977, HEAD_WIDTHS + (NUM_OBJ * od,)) for od in HEAD_OUT.values()] \
+    + [(977, (200, 72, 40, 24, 5)), (977, (202, 40, 24, 12, 5))]
 # a unit quaternion after the estimate: f32 exact to rounding; bf16 is
 # normalised and composed in bf16 as in JAX and not renormalised after the
 # last composition, so each component carries a few bf16 ulps (3.9e-3)
@@ -146,6 +158,12 @@ TC_KERNELS = {"mlp_head": "mlp_head_wgmma_kernel",
 # would run as HMMA or HGMMA), in every template instantiation
 F32_KERNELS = {"mlp_head": "head_sgemm_kernel",
                "upconv3x3_prelu": "upconv_sgemm_kernel"}
+# the int8 ladder: s8 wgmma (IGMMA) and no mma.sync (IMMA) in both
+# instantiations (nearest and stochastic rounding); the knn kernels: FP32
+# cores only (no HMMA, HGMMA or IGMMA)
+INT8_KERNEL = "qmlp_wgmma_kernel"
+KNN_KERNELS = ("nn_kernel", "nn_mxu_kernel")
+SASS_OPS = ("FFMA", "HMMA", "HGMMA", "IMMA", "IGMMA")
 # ragged shapes for the f32 and bf16 kernels: head (rows, widths) and
 # decoder (batch, h, w, Cin, Cout); none fills every tile
 RAGGED_HEADS = [(rows, HEAD_WIDTHS + (NUM_OBJ * od,)) for rows in (977, 8000)
@@ -232,14 +250,29 @@ def build_phase():
                   f"{'ok' if ok else 'FAIL'}")
             bad += [] if ok else [f"{name} f32 {f}: {c}"]
         bad += [] if fns else [f"no f32 {sub} in the library"]
+    fns = {f: c for f, c in sass.items() if INT8_KERNEL in f}
+    for f, c in sorted(fns.items()):
+        ok = c["IGMMA"] > 0 and c["IMMA"] == 0
+        print(f"  SASS: {c['IGMMA']} IGMMA, {c['IMMA']} IMMA in int8 {f[:90]} "
+              f"(IGMMA > 0, no mma.sync) {'ok' if ok else 'FAIL'}")
+        bad += [] if ok else [f"int8 {f}: {c}"]
+    bad += [] if len(fns) == 2 else [f"{len(fns)} int8 {INT8_KERNEL} in the library, not 2"]
+    for sub in KNN_KERNELS:
+        fns = {f: c for f, c in sass.items() if sub in f}
+        for f, c in sorted(fns.items()):
+            tc = c["HMMA"] + c["HGMMA"] + c["IGMMA"] + c["IMMA"]
+            print(f"  SASS: {c['FFMA']} FFMA, {tc} tensor-core instructions in "
+                  f"knn {f[:90]} (must be 0) {'ok' if tc == 0 else 'FAIL'}")
+            bad += [] if tc == 0 else [f"knn {f}: {c}"]
+        bad += [] if fns else [f"no knn {sub} in the library"]
     if bad:
         raise AssertionError(f"SASS check failed: {bad}")
     return wall
 
 
 def count_sass(lib_path, nvcc):
-    """FFMA, HMMA and HGMMA instructions of each function in the library's
-    SASS (cuobjdump, beside nvcc), by mangled function name."""
+    """FFMA, HMMA, HGMMA, IMMA and IGMMA instructions of each function in
+    the library's SASS (cuobjdump, beside nvcc), by mangled function name."""
     cuobjdump = Path(nvcc).with_name("cuobjdump")
     sass = subprocess.run([str(cuobjdump), "-sass", str(lib_path)],
                           capture_output=True, text=True, timeout=300,
@@ -248,7 +281,7 @@ def count_sass(lib_path, nvcc):
     for line in sass.splitlines():
         if "Function : " in line:
             fn = line.split("Function : ")[1].strip()
-            per_fn[fn] = {"FFMA": 0, "HMMA": 0, "HGMMA": 0}
+            per_fn[fn] = {op: 0 for op in SASS_OPS}
         elif fn is not None:
             for op in per_fn[fn]:
                 if f" {op}." in line or f" {op} " in line:
@@ -427,6 +460,50 @@ def knn_phase():
           f"(must be 0); kernels equal their twins: {same}")
     if odd or not all(same):
         raise AssertionError("knn kernels do not take the first index on ties")
+    # the same at the large mesh, where the mxu kernel is held to MXU_TIE
+    q, t = knn_inputs(gen, MESH_LARGE, queries=100_000)
+    t[:, 1::2] = t[:, 0::2]
+    idx = knn.nn_argmin(q, t)
+    odd = int((idx % 2).sum())
+    same = [torch.equal(f(q, t), g(q, t)) for f, g in (
+        (knn.nn_argmin, knn.nn_argmin_plain), (knn.nn_match, knn.nn_match_plain))]
+    n_diff, worst = mxu_disagreements(q, knn.nn_match_mxu(q, t),
+                                      knn.nn_match_mxu_plain(q, t))
+    print(f"  ties (duplicate targets) {tuple(q.shape)} x {MESH_LARGE}: {odd} odd "
+          f"indices (must be 0); exact kernels equal their twins: {same}; "
+          f"nn_match_mxu: {n_diff} rows differ, worst {worst:.3e} (tol {MXU_TIE:g})")
+    if odd or not all(same) or worst > MXU_TIE:
+        raise AssertionError("knn kernels do not take the first index on ties "
+                             "at the large mesh")
+    # distinct targets at exactly the same d2: a query at the origin and
+    # the six unit points +-e_i (d2 = 1 in both forms, exactly) among far
+    # points, two of them in one group of 8 and the rest later; the first
+    # (index 13) must win
+    far = _rand((NUM_SYM, 1029, 3), gen, 1.0)
+    far = far / far.norm(dim=-1, keepdim=True) * 4.0
+    unit = torch.cat([torch.eye(3, device=DEVICE), -torch.eye(3, device=DEVICE)])
+    for k, m in zip((13, 14, 300, 301, 1024, 1028), unit):
+        far[:, k] = m
+    q0 = torch.zeros((NUM_SYM, 10_007, 3), device=DEVICE)
+    got = [f(q0, far) for f in (knn.nn_match, knn.nn_match_mxu)]
+    first = int((knn.nn_argmin(q0, far) != 13).sum())
+    wrong = [int((g != unit[0]).any(-1).sum()) for g in got]
+    print(f"  equal-d2 ties {tuple(q0.shape)} x 1029: nn_argmin misses index "
+          f"13 on {first} rows, nn_match / nn_match_mxu on {wrong} (must be 0)")
+    if first or any(wrong):
+        raise AssertionError("knn kernels do not take the first of equal d2")
+    # a ragged size: P not a multiple of a block's queries, M2 of no whole
+    # group or chunk
+    q, t = _rand((NUM_SYM, 10_007, 3), gen, 0.05), _rand((NUM_SYM, 1029, 3), gen, 0.05)
+    same = [torch.equal(f(q, t), g(q, t)) for f, g in (
+        (knn.nn_argmin, knn.nn_argmin_plain), (knn.nn_match, knn.nn_match_plain))]
+    n_diff, worst = mxu_disagreements(q, knn.nn_match_mxu(q, t),
+                                      knn.nn_match_mxu_plain(q, t))
+    print(f"  ragged q {tuple(q.shape)} t {tuple(t.shape)}: exact kernels equal "
+          f"their twins: {same}; nn_match_mxu {n_diff} rows differ, worst "
+          f"{worst:.3e} (tol {MXU_TIE:g})")
+    if not all(same) or worst > MXU_TIE:
+        raise AssertionError("knn kernels disagree with their twins at a ragged size")
     return errs
 
 
@@ -917,13 +994,15 @@ def train_timing_phase(kern, batch, result, launches, errs):
         k = time_ms(lambda: fn(q, t), 10)
         pl = time_ms(lambda: plain(q, t), 3, warmup=1)
         lb = time_ms(lib, 3, warmup=1)
-        ops_ms = knn.flops(s * p, m2) / PEAK_FLOPS["f32"] * 1e3
+        slots = knn.issue_slots(s * p, m2, augmented=name == "nn_match_mxu")
+        ops_ms = slots / knn.FP32_SLOTS_PER_S * 1e3
         bytes_ms = (12 * s * p + 12 * s * m2 + out_bytes * s * p) / HBM_BYTES_PER_S * 1e3
         by_path = {pth: launches[pth][name] for pth in ("train_stage1", "train_refine")}
         print(f"  {name} f32 q {tuple(q.shape)} t {tuple(t.shape)}: kernel "
-              f"{k:.3f} ms ({knn.flops(s * p, m2) / k / 1e9:.1f} TFLOP/s at 8 "
-              f"FLOP/pair), plain {pl:.3f} ms, library {lb:.3f} ms, bound "
-              f"{max(ops_ms, bytes_ms):.3f} ms")
+              f"{k:.3f} ms ({slots / k / 1e9:.1f} T FP32 slots/s at "
+              f"{slots // (s * p * m2)} a pair), plain {pl:.3f} ms, library "
+              f"{lb:.3f} ms, bound {max(ops_ms, bytes_ms):.3f} ms "
+              f"({100 * max(ops_ms, bytes_ms) / k:.0f}% of it reached)")
         entries.append({
             "name": name, "route": "cuda",
             "source": "plr2_tpu_torch/csrc/knn.cu",
@@ -932,7 +1011,9 @@ def train_timing_phase(kern, batch, result, launches, errs):
             "max_abs_err": errs[name], "ms": k, "plain_ms": pl,
             "bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-            "library_ms": lb})
+            "library_ms": lb,
+            "bound_operations": f"FP32 issue slots, {slots // (s * p * m2)} a pair, "
+                                f"at {knn.FP32_SLOTS_PER_S:.3g}/s"})
     return times, entries
 
 
@@ -1108,24 +1189,43 @@ def quant_phase():
                   f"{mean:.4f} (< {QUANT_ACC['mean']}) {'ok' if ok else 'FAIL'}")
             if not ok:
                 raise AssertionError("int8 head too far from the f32 head")
-    # 4. another depth and row count: tests/test_quant.py's ladder, 40 rows
+    # 4. other depths, widths and row counts: tests/test_quant.py's ladder
+    # at 40 rows, the ragged ladders at 977
     gen = torch.Generator().manual_seed(8)
-    widths = QUANT_SMALL
-    small = quant.quantize_weights(
-        [(_rand((o, i), gen, i ** -0.5), _rand((o,), gen, 0.05))
-         for i, o in zip(widths[:-1], widths[1:])])
-    xs = _rand((QUANT_SMALL_ROWS, widths[0]), gen)
+    for rows, widths in [(QUANT_SMALL_ROWS, QUANT_SMALL)] + QUANT_RAGGED:
+        ladder = quant.quantize_weights(
+            [(_rand((o, i), gen, i ** -0.5), _rand((o,), gen, 0.05))
+             for i, o in zip(widths[:-1], widths[1:])])
+        xs = _rand((rows, widths[0]), gen)
+        for stochastic in (False, True):
+            got = quant.quantized_mlp_head(xs, ladder, QUANT_SEED, stochastic)
+            torch.cuda.synchronize()
+            ref = quant.quantized_mlp_head_plain(xs, ladder, QUANT_SEED, stochastic)
+            n_diff = int((got != ref).sum())
+            print(f"  quantized_mlp_head {widths} at {rows} rows, "
+                  f"stochastic={stochastic}: {n_diff} outputs differ (exact) "
+                  f"{'ok' if n_diff == 0 else 'FAIL'}")
+            if n_diff:
+                raise AssertionError(f"quantized_mlp_head disagrees with its "
+                                     f"plain version on {widths} at {rows} rows")
+    # 5. batch 128: the seeded heads on 128,000 rows of features
+    xb = head_features(pipe, BATCH_BIG)
     for stochastic in (False, True):
-        got = quant.quantized_mlp_head(xs, small, QUANT_SEED, stochastic)
-        torch.cuda.synchronize()
-        ref = quant.quantized_mlp_head_plain(xs, small, QUANT_SEED, stochastic)
-        n_diff = int((got != ref).sum())
-        print(f"  quantized_mlp_head {widths} at {QUANT_SMALL_ROWS} rows, "
-              f"stochastic={stochastic}: {n_diff} outputs differ (exact) "
-              f"{'ok' if n_diff == 0 else 'FAIL'}")
-        if n_diff:
-            raise AssertionError("quantized_mlp_head disagrees with its plain "
-                                 "version on the small ladder")
+        for tag, q in qheads.items():
+            got = quant.quantized_mlp_head(xb, q, QUANT_SEED, stochastic)
+            torch.cuda.synchronize()
+            ref = quant.quantized_mlp_head_plain(xb, q, QUANT_SEED, stochastic)
+            n_diff = int((got != ref).sum())
+            max_err = max(max_err, float((got - ref).abs().max()))
+            print(f"  quantized_mlp_head {tag} stochastic={stochastic} "
+                  f"{tuple(xb.shape)}->{got.shape[1]}: {n_diff} of {got.numel()} "
+                  f"outputs differ (exact) {'ok' if n_diff == 0 else 'FAIL'}")
+            if n_diff:
+                raise AssertionError("quantized_mlp_head disagrees with its "
+                                     "plain version at batch 128")
+            del got, ref
+    del xb
+    torch.cuda.empty_cache()
     return pipe, heads, qheads, seen, max_err
 
 
@@ -1139,14 +1239,16 @@ def quant_timing_phase(pipe, heads, qheads, seen, max_err):
     for batch in (BATCH, BATCH_BIG):
         x = head_features(pipe, batch)
         rows = x.shape[0]
-        t = {"ms": 0.0, "f32_ms": 0.0, "bf16_ms": 0.0, "plain_ms": 0.0,
-             "library_ms": 0.0, "ops": 0, "bytes": 0}
+        t = {"ms": 0.0, "nearest_ms": 0.0, "f32_ms": 0.0, "bf16_ms": 0.0,
+             "plain_ms": 0.0, "library_ms": 0.0, "ops": 0, "bytes": 0}
         per_launch = []
         xb = x.bfloat16()
         for tag, q in qheads.items():
             k = time_ms(lambda: quant.quantized_mlp_head(x, q), 10)
             per_launch.append(k)
             t["ms"] += k
+            t["nearest_ms"] += time_ms(
+                lambda: quant.quantized_mlp_head(x, q, stochastic=False), 10)
             t["f32_ms"] += time_ms(lambda: mlp_head.mlp_head(x, heads[tag]), 5)
             hb = [(w.bfloat16(), b.bfloat16()) for w, b in heads[tag]]
             t["bf16_ms"] += time_ms(lambda: mlp_head.mlp_head(xb, hb), 5)
@@ -1163,7 +1265,9 @@ def quant_timing_phase(pipe, heads, qheads, seen, max_err):
         bound = max(ops_ms, bytes_ms)
         print(f"  int8 heads batch {batch} ({rows} rows): kernel "
               f"{' + '.join(f'{v:.3f}' for v in per_launch)} = {t['ms']:.3f} ms "
-              f"per forward ({t['ops'] / t['ms'] / 1e9:.1f} TOP/s); f32 head "
+              f"per forward ({t['ops'] / t['ms'] / 1e9:.1f} TOP/s; stochastic "
+              f"rounding, the op's default), {t['nearest_ms']:.3f} ms rounding "
+              f"to nearest; f32 head "
               f"kernel {t['f32_ms']:.3f} ms, bf16 {t['bf16_ms']:.3f} ms; "
               f"torch._int_mm chain {t['library_ms']:.3f} ms; "
               + (f"plain {t['plain_ms']:.3f} ms; " if batch == BATCH else "")
@@ -1180,8 +1284,13 @@ def quant_timing_phase(pipe, heads, qheads, seen, max_err):
                 "max_abs_err": max_err, "ms": t["ms"], "plain_ms": t["plain_ms"],
                 "bound_ms": bound,
                 "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-                "library_ms": t["library_ms"],
+                "library_ms": t["library_ms"], "nearest_ms": t["nearest_ms"],
                 "f32_head_ms": t["f32_ms"], "bf16_head_ms": t["bf16_ms"]}
+        else:
+            entry.update({"ms_b128": t["ms"], "library_ms_b128": t["library_ms"],
+                          "nearest_ms_b128": t["nearest_ms"],
+                          "bound_ms_b128": bound, "f32_head_ms_b128": t["f32_ms"],
+                          "bf16_head_ms_b128": t["bf16_ms"]})
         del x, xb
         torch.cuda.empty_cache()
     return entry

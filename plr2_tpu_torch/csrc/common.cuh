@@ -79,9 +79,10 @@ inline cudaError_t allow_smem(K kernel, int bytes, int& granted) {
 
 
 // ---------------------------------------------------------------------------
-// Hopper pieces of the bf16 tensor-core kernels (mlp_head.cu, upconv.cu):
-// mbarriers, TMA loads, wgmma and its shared-memory descriptors. Addresses
-// of shared memory are 32-bit shared-window addresses (smem_addr).
+// Hopper pieces of the tensor-core kernels (mlp_head.cu and upconv.cu in
+// bf16, quant.cu in int8): mbarriers, TMA loads, wgmma and its
+// shared-memory descriptors. Addresses of shared memory are 32-bit
+// shared-window addresses (smem_addr).
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count)
@@ -122,6 +123,18 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   }
 }
 
+// Hand registers between warpgroups (sm_90a): every thread of a warpgroup
+// executes one; `dec` returns registers to the block's pool, `inc` waits
+// until the pool holds enough. R a multiple of 8 in 24..256.
+template <int R>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+template <int R>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
 // barrier `id` (1..15) over `count` threads of the block (a multiple of 32)
 __device__ __forceinline__ void named_bar_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
@@ -131,6 +144,13 @@ __device__ __forceinline__ void named_bar_sync(int id, int count) {
 // the same bytes by wgmma (the async proxy)
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// Asks the TMA unit to bring `bytes` (a multiple of 16) of device memory
+// at `src` (16-byte aligned) into L2, without waiting for it.
+__device__ __forceinline__ void prefetch_l2(const void* src, int bytes) {
+  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;" ::"l"(src), "r"(bytes)
+               : "memory");
 }
 
 // TMA tile loads into shared memory; completion is counted in bytes on `bar`.
@@ -184,6 +204,11 @@ __device__ __forceinline__ void fence_operands(float (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
+template <int R>
+__device__ __forceinline__ void fence_operands(int (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
 
 // Descriptor of a K-major operand tile written by TMA with 128-byte
 // swizzle: rows of 64 bf16 (128 B), 8-row groups 1024 B apart, the tile
@@ -191,6 +216,14 @@ __device__ __forceinline__ void fence_operands(float (&d)[R]) {
 __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
          ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// Descriptor of a K-major operand tile written by TMA with 64-byte swizzle:
+// rows of 64 B (64 int8: two k32 steps), 8-row groups 512 B apart, the
+// tile 512-byte aligned. The second k32 step of a row adds 32 B to `addr`.
+__device__ __forceinline__ uint64_t desc_sw64(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(512 >> 4) << 32) | ((uint64_t)2 << 62);
 }
 
 // Descriptor of a K-major operand in the no-swizzle canonical layout: core
@@ -316,14 +349,104 @@ __device__ __forceinline__ void wgmma_bf16(float (&d)[N / 2], uint64_t a, uint64
   else wgmma_m64n32k16(d, a, b, accumulate);
 }
 
-// Host side: a TMA descriptor of a bf16 tensor, encoded at each launch and
-// passed to the kernel as a __grid_constant__ parameter. libcuda's
-// cuTensorMapEncodeTiled is fetched through the runtime, so the library
-// needs no -lcuda. dims and box innermost first; strides in bytes of the
-// rank - 1 outer dimensions. Returns false if the encoding is refused.
-inline bool encode_bf16_map(CUtensorMap* map, int rank, const void* ptr,
-                            const cuuint64_t* dims, const cuuint64_t* strides,
-                            const cuuint32_t* box, bool swizzle128) {
+// ---------------------------------------------------------------------------
+// int8 wgmma (quant.cu): s8 x s8 -> s32, both operands K-major in shared
+// memory, k = 32 bytes a step. The s32 accumulator fragment has the f32
+// one's layout: register 4j + 2h + e holds row 16 warp + lane/4 + 8h,
+// column 8j + 2 (lane % 4) + e, so an N = 128 fragment is two N = 64
+// fragments side by side. The integer form takes no scale or transpose
+// immediates: both operands must be K-major.
+
+// D (64 x 64, s32) += A (64 x 32) * B (64 x 32)^T, both K-major s8 in
+// shared memory; d holds the accumulator in wgmma's fragment layout
+__device__ __forceinline__ void wgmma_m64n64k32_s8(int* d, uint64_t a, uint64_t b,
+                                                   int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// D (64 x 128, s32) += A (64 x 32) * B (128 x 32)^T, both K-major s8 in
+// shared memory; d holds the accumulator in wgmma's fragment layout
+__device__ __forceinline__ void wgmma_m64n128k32_s8(int* d, uint64_t a, uint64_t b,
+                                                   int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// D (64 x 256, s32) += A (64 x 32) * B (256 x 32)^T, both K-major s8 in
+// shared memory; d holds the accumulator in wgmma's fragment layout
+__device__ __forceinline__ void wgmma_m64n256k32_s8(int* d, uint64_t a, uint64_t b,
+                                                   int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]),
+        "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+        "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
+        "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]), "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]),
+        "+r"(d[88]), "+r"(d[89]), "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]),
+        "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]), "+r"(d[100]), "+r"(d[101]), "+r"(d[102]), "+r"(d[103]),
+        "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]), "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]),
+        "+r"(d[112]), "+r"(d[113]), "+r"(d[114]), "+r"(d[115]), "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
+        "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]), "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+
+// Host side: a TMA descriptor of a tensor of element type `type` (bf16 for
+// the head and decoder kernels, uint8 for the int8 ladder's weights),
+// encoded at each launch and passed to the kernel as a __grid_constant__
+// parameter. libcuda's cuTensorMapEncodeTiled is fetched through the
+// runtime, so the library needs no -lcuda. dims and box innermost first;
+// strides in bytes of the rank - 1 outer dimensions (multiples of 16).
+// Returns false if the encoding is refused.
+inline bool encode_map(CUtensorMap* map, CUtensorMapDataType type, int rank,
+                       const void* ptr, const cuuint64_t* dims,
+                       const cuuint64_t* strides, const cuuint32_t* box,
+                       CUtensorMapSwizzle swizzle) {
   using Encode = decltype(&cuTensorMapEncodeTiled);
   static Encode encode = nullptr;
   if (encode == nullptr) {
@@ -341,12 +464,19 @@ inline bool encode_bf16_map(CUtensorMap* map, int rank, const void* ptr,
     encode = reinterpret_cast<Encode>(fn);
   }
   const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank,
-                const_cast<void*>(ptr), dims, strides, box, unit,
-                CU_TENSOR_MAP_INTERLEAVE_NONE,
-                swizzle128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+  return encode(map, type, (cuuint32_t)rank, const_cast<void*>(ptr), dims,
+                strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// a bf16 tensor, with 128-byte swizzle or none
+inline bool encode_bf16_map(CUtensorMap* map, int rank, const void* ptr,
+                            const cuuint64_t* dims, const cuuint64_t* strides,
+                            const cuuint32_t* box, bool swizzle128) {
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, ptr, dims,
+                    strides, box,
+                    swizzle128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE);
 }
 
 }  // namespace plr2

@@ -229,6 +229,16 @@ def chamfer_min_distance(pred: torch.Tensor,
     return nn_distance(pred, target)
 
 
-def flops(queries: int, targets: int) -> int:
-    """8 FLOP per query-target pair: 3 differences, 3 products, 2 sums."""
-    return 8 * queries * targets
+# FP32 instruction slots a second of an H100 SXM: 132 SMs x 128 lanes x
+# 1.98 GHz, the 67 TFLOP/s of the data sheet over 2 (it counts an FFMA as
+# two FLOP)
+FP32_SLOTS_PER_S = 33.5e12
+
+
+def issue_slots(queries: int, targets: int, augmented: bool = False) -> int:
+    """FP32 issue slots of the d2 arithmetic, the kernels' bound: 8 a
+    query-target pair for the exact difference, which may not fuse into an
+    FFMA (3 __fsub_rn, 3 __fmul_rn, 2 __fadd_rn), 5 for the augmented
+    product (FMUL, 2 FFMA, 2 FADD). At 5 x 500k x 500 pairs that is 0.299
+    and 0.187 ms at `FP32_SLOTS_PER_S`."""
+    return (5 if augmented else 8) * queries * targets

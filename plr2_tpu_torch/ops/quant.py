@@ -11,6 +11,13 @@ bounds it on the H100 (bytes) and how it is built.
 
 Weights are in the torch ``Linear`` / ``Conv1d`` layout, (out, in), as
 ``models.posenet._weight2d`` gives them (the JAX function takes (in, out)).
+The kernel reads them by TMA, whose row strides are multiples of 16 bytes:
+``pack_weights`` pads a matrix whose ``in`` is not a multiple of 16 with
+zero columns (a copy per call, never on the main path's widths). It keeps
+a layer's whole output row block in the wgmma accumulators, so a layer has
+at most ``MAX_WIDTH`` outputs, and x's row in registers, so x has at most
+``MAX_INPUT`` columns; ``smem_plan`` mirrors the kernel's shared-memory
+layout.
 
 Stochastic rounding, ``floor(h / a + u)``, draws ``u`` from the port's own
 counter-based generator: Philox-4x32-10 (Salmon et al., SC'11) keyed by
@@ -47,6 +54,12 @@ QParams = Sequence[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
 launches = 0
 
 MAX_LAYERS = 8  # csrc/quant.cu kMaxLayers
+MAX_WIDTH = 640  # kMaxWidth: a layer's outputs, all in the accumulators
+MAX_INPUT = 2304  # 128 kXVec: x's columns, a row held by one warp
+SMEM_LIMIT = 232448  # shared memory a block may use on the H100
+_ROWS, _SLICE, _CODE_TILE, _MAX_STAGES = 64, 64, 64 * 128, 4
+# row maxima and scales, a layer's scales and biases, the barriers
+_SMEM_TAIL = 3 * _ROWS * 4 + 2 * MAX_WIDTH * 4 + 16 * _MAX_STAGES
 _MASK = 0xFFFFFFFF
 _PHILOX_M = (0xD2511F53, 0xCD9E8D57)
 _PHILOX_W = (0x9E3779B9, 0xBB67AE85)
@@ -140,6 +153,52 @@ def quantized_mlp_head_plain(x: torch.Tensor, qparams: QParams, seed: int = 0,
     return h
 
 
+def _round_up(a: int, b: int) -> int:
+    return -(-a // b) * b
+
+
+def pack_weights(w: torch.Tensor) -> torch.Tensor:
+    """(N, K) int8 -> the matrix the kernel's TMA reads: (N, round16(K)),
+    zero past column K, 16-byte aligned. `w` itself where K is a multiple
+    of 16 and its data is aligned."""
+    n, k = w.shape
+    kw = _round_up(k, 16)
+    if kw == k and w.data_ptr() % 16 == 0:
+        return w
+    out = torch.zeros((n, kw), dtype=torch.int8, device=w.device)
+    out[:, :k] = w
+    return out
+
+
+def smem_plan(widths: Sequence[int]) -> Tuple[int, int]:
+    """(ring stages, shared-memory bytes a block) of the kernel for the
+    ladder `widths` = (C0, N1, ..., NL), as csrc/quant.cu `plan_ladder`
+    lays it out: a ring of stages of round128(max N) rows x 64 bytes of
+    weights, the codes of the widest layer input in 64 x 128 tiles, the
+    row maxima and scales, a layer's scales and biases, the barriers, 1 KB
+    of alignment; at least two stages. Raises ValueError where the kernel
+    does not take the widths."""
+    what = "quantized_mlp_head"
+    c0, outs = widths[0], list(widths[1:])
+    if not 1 <= len(outs) <= MAX_LAYERS:
+        raise ValueError(f"{what}: expected 1..{MAX_LAYERS} layers, got {len(outs)}")
+    if not 1 <= c0 <= MAX_INPUT:
+        raise ValueError(f"{what}: x has {c0} columns; the kernel holds a row "
+                         f"in registers and takes 1..{MAX_INPUT}")
+    for i, n in enumerate(outs):
+        if not 1 <= n <= MAX_WIDTH:
+            raise ValueError(f"{what}: layer {i + 1} has {n} outputs; the kernel "
+                             f"keeps a layer's outputs in its accumulators and "
+                             f"takes 1..{MAX_WIDTH}")
+    stage = _round_up(max(outs), 128) * _SLICE
+    fixed = 1024 + _round_up(max(widths[:-1]), 128) // 128 * _CODE_TILE + _SMEM_TAIL
+    stages = min(_MAX_STAGES, (SMEM_LIMIT - fixed) // stage)
+    if stages < 2:
+        raise ValueError(f"{what}: widths {tuple(widths)} need more than "
+                         f"{SMEM_LIMIT} bytes of shared memory")
+    return stages, fixed + stages * stage
+
+
 def _check(x: torch.Tensor, qparams: QParams) -> None:
     what = "quantized_mlp_head"
     if not 1 <= len(qparams) <= MAX_LAYERS:
@@ -160,9 +219,8 @@ def _check(x: torch.Tensor, qparams: QParams) -> None:
             raise ValueError(
                 f"{what}: layer {i + 1} expects w (N, {c_in}), scale (N,) and "
                 f"b (N,), got {tuple(w.shape)}, {tuple(s.shape)}, {tuple(b.shape)}")
-        if w.data_ptr() % 4:
-            raise ValueError(f"{what}: layer {i + 1} weights must be 4-byte aligned")
         c_in = n
+    smem_plan((x.shape[1], *(w.shape[0] for w, _, _ in qparams)))
 
 
 def quantized_mlp_head(x: torch.Tensor, qparams: QParams, seed: int = 0,
@@ -174,8 +232,9 @@ def quantized_mlp_head(x: torch.Tensor, qparams: QParams, seed: int = 0,
         return quantized_mlp_head_plain(x, qparams, seed, stochastic)
     _check(x, qparams)
     num = len(qparams)
-    ptrs = [(ctypes.c_void_p * num)(*(layer[j].data_ptr() for layer in qparams))
-            for j in range(3)]
+    packed = [pack_weights(w) for w, _, _ in qparams]
+    ptrs = [(ctypes.c_void_p * num)(*(t.data_ptr() for t in tensors)) for tensors in
+            (packed, [s for _, s, _ in qparams], [b for _, _, b in qparams])]
     dims = (ctypes.c_int * (num + 1))(x.shape[1], *(w.shape[0] for w, _, _ in qparams))
     out = torch.empty((x.shape[0], dims[num]), device=x.device, dtype=torch.float32)
     err = _build.lib().plr2_quantized_mlp_head(
