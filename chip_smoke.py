@@ -61,6 +61,32 @@ non-zero, and there is no CPU fallback:
    the f32 and bf16 head kernels, the plain version, a torch._int_mm
    chain and the bound.
 
+11. trainer (after train): the training entry point at YCB width (21
+   objects, 1000 points, 500 mesh points, YCB's symmetric objects) on the
+   fixed 21-object synthetic library of tools/journey_config5.py at 480 x
+   640 (16 train / 8 test samples, crops 80 to 200 px, non-square too):
+   Trainer.fit for 2 epochs with margins that fire the decay and refine
+   switches after epoch 1, best / last checkpoints, the launch counts per
+   sample of each stage, the restore_into round trip (exact), a stop
+   mid-window (BN back to the window's start, last saved); one stage-1
+   epoch through the kernels and through the plain versions from one state
+   and seed (losses 1e-4 relative, parameters 1e-3 relative L2 over the
+   network); every
+   kernel of that path against its plain version at each crop's shapes.
+12. fused: one FusedTrainer epoch (window 8, f32) with its launch counts;
+   a window on its shared canvas against 8 per-sample steps of the same
+   samples (losses and gradients 1e-5 relative L2; the loop against itself
+   is printed beside it: atomic adds on the card reorder sums).
+13. mixed: BatchTrainer in bf16 mixed precision, batch 32, stage 1, 3
+   steps: launch counts, bf16 operands at both kernels, f32 parameters, BN
+   statistics and Adam state; the same steps through the plain versions
+   (loss 2e-2 relative) and in f32 (5%).
+14. train entry timing: Trainer samples/s in both stages, a profiler table
+   of one per-sample stage-1 step, FusedTrainer ms per window, mixed bf16
+   ms per step and samples/s at batch 32, and the
+   wall time of `python -m plr2_tpu_torch.tools.train --synthetic --nepoch
+   2` on the card.
+
 The second-to-last line is a JSON object with one entry per kernel and
 dtype; the last line is {"ok": true, "device": {...}}.
 """
@@ -69,6 +95,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -139,6 +166,32 @@ QUANT_RAGGED = [(977, HEAD_WIDTHS + (NUM_OBJ * od,)) for od in HEAD_OUT.values()
 # normalised and composed in bf16 as in JAX and not renormalised after the
 # last composition, so each component carries a few bf16 ulps (3.9e-3)
 QUAT_NORM_TOL = {"f32": 1e-5, "bf16": 3e-2}
+
+# the training entry point (Trainer, FusedTrainer, BatchTrainer) at YCB's
+# width on the fixed 21-object library of tools/journey_config5.py: library
+# ids 13, 16, 19, 20, 21 are the symmetric boxes, YCB's 0-based SYM_LIST
+LIB_SYM_IDS = (13, 16, 19, 20, 21)
+TRAIN_FRAMES, TEST_FRAMES, PER_FRAME = 4, 2, 4  # 16 train / 8 test samples
+WINDOW = 8  # the per-sample trainers' accumulation window (batch_size)
+MIXED_BATCH, MIXED_STEPS = 32, 3
+# one stage-1 Trainer epoch through the kernels vs through the plain
+# versions (each window starting from one state): per-sample loss,
+# relative; PoseNet's parameters after each window's Adam step, relative L2
+# over the whole network (a tensor alone can be far off where it starts at
+# zero, as BatchNorm's shifts do, and Adam turns a near-zero gradient's
+# f32 noise into a step of either sign)
+EPOCH_TOL = {"loss": 1e-4, "param_l2": 1e-3}
+# a fused window vs the same samples' per-sample steps: losses and each
+# gradient tensor in relative L2. One computation, but the backward passes
+# of the embedding gather and the PSP resize add by atomics on the card, so
+# two runs of the same loop differ too (measured on an H100 80GB HBM3 at
+# 700 W: up to 4.1e-6 between window and loop; the phase prints the
+# loop-against-itself gap beside it)
+FUSED_TOL = 1e-5
+# mixed precision: bf16 kernels vs their plain versions on one loss
+# (bf16 activations), and bf16 compute vs the f32 trajectory
+# (tests/test_train_eval.py:366-368)
+MIXED_TOL = {"kernel_vs_plain": 2e-2, "vs_f32": 0.05}
 
 DEVICE = "cuda"
 
@@ -821,8 +874,8 @@ def timing_phase(kern, launches, errs):
 
     entries = []
     for dt_name in ("f32", "bf16"):
-        paths = (("f32", "train_stage1", "train_refine") if dt_name == "f32"
-                 else ("bf16",))
+        paths = (("f32", "train_stage1", "train_refine", "trainer", "fused")
+                 if dt_name == "f32" else ("bf16", "mixed"))
         for kname, t in tables[(dt_name, BATCH)].items():
             by_path = {PATH_NAMES.get(pth, pth): launches[pth][kname]
                        for pth in paths}
@@ -997,7 +1050,8 @@ def train_timing_phase(kern, batch, result, launches, errs):
         slots = knn.issue_slots(s * p, m2, augmented=name == "nn_match_mxu")
         ops_ms = slots / knn.FP32_SLOTS_PER_S * 1e3
         bytes_ms = (12 * s * p + 12 * s * m2 + out_bytes * s * p) / HBM_BYTES_PER_S * 1e3
-        by_path = {pth: launches[pth][name] for pth in ("train_stage1", "train_refine")}
+        by_path = {pth: launches[pth][name] for pth in (
+            "train_stage1", "train_refine", "trainer", "fused", "mixed")}
         print(f"  {name} f32 q {tuple(q.shape)} t {tuple(t.shape)}: kernel "
               f"{k:.3f} ms ({slots / k / 1e9:.1f} T FP32 slots/s at "
               f"{slots // (s * p * m2)} a pair), plain {pl:.3f} ms, library "
@@ -1015,6 +1069,510 @@ def train_timing_phase(kern, batch, result, launches, errs):
             "bound_operations": f"FP32 issue slots, {slots // (s * p * m2)} a pair, "
                                 f"at {knn.FP32_SLOTS_PER_S:.3g}/s"})
     return times, entries
+
+
+# ---------------- the training entry point (Trainer, FusedTrainer,
+# BatchTrainer in mixed precision) on the synthetic data path ----------------
+
+
+def train_config(dtype="float32", **train):
+    """YCB's width (21 objects, 1000 points, 500 mesh points, its symmetric
+    objects) with the reference curriculum's w and lr."""
+    from plr2_tpu_torch.config import (DatasetConfig, ModelConfig,
+                                       PipelineConfig, TrainConfig)
+    return PipelineConfig(
+        dataset=DatasetConfig(name="ycb", num_points=NUM_POINTS,
+                              num_objects=NUM_OBJ, num_mesh_points=MESH_POINTS,
+                              num_mesh_points_large=MESH_LARGE,
+                              sym_list=SYM_LIST, crop_size=CROP),
+        model=ModelConfig(num_points=NUM_POINTS, num_objects=NUM_OBJ,
+                          dtype=dtype),
+        train=TrainConfig(**{"batch_size": WINDOW, "refine_iterations": ITERS,
+                             "lr": LR, "w": W, **train}))
+
+
+def scene_dataset(frames, seed):
+    """Frames of the fixed 21-object library at 480 x 640 (tools/
+    journey_config5.py's: symmetric library ids LIB_SYM_IDS)."""
+    from plr2_tpu_torch.data import SyntheticSceneDataset
+    from plr2_tpu_torch.data.synthetic import make_model_library
+    models = make_model_library(NUM_OBJ, MESH_POINTS, sym_ids=LIB_SYM_IDS)
+    return SyntheticSceneDataset(models, frames, objects_per_frame=PER_FRAME,
+                                 num_points=NUM_POINTS, seed=seed)
+
+
+def is_sym(ds, i):
+    return ds.items[i]["obj"] - 1 in SYM_LIST
+
+
+def crop_shapes(ds):
+    """The (h, w) of every sample's border-list crop."""
+    from plr2_tpu_torch.data import get_bbox_from_mask
+    out = []
+    for i in range(len(ds)):
+        raw = ds.get_raw(i)
+        rmin, rmax, cmin, cmax = get_bbox_from_mask(raw["mask"])
+        out.append((rmax - rmin, cmax - cmin))
+    return out
+
+
+def recording_trainer(kind, cfg, pipe, forced=None):
+    """A trainer that records its network's parameters after each window's
+    optimizer step; with `forced` (another run's records) it then loads that
+    run's parameters, so each window of two runs starts from one state."""
+    tr = kind(cfg, pipe=pipe)
+    tr.after_steps = []
+    make = tr.stage_step
+
+    def stage_step(state):
+        step = make(state)
+        apply = step.apply
+
+        def recorded():
+            apply()
+            net = step.network
+            tr.after_steps.append({n: p.detach().clone()
+                                   for n, p in net.named_parameters()})
+            k = len(tr.after_steps) - 1
+            if forced is not None and k < len(forced):
+                with torch.no_grad():
+                    for n, p in net.named_parameters():
+                        p.copy_(forced[k][n])
+        step.apply = recorded
+        return step
+    tr.stage_step = stage_step
+    return tr
+
+
+def bn_state(net):
+    return {k: v.clone() for k, v in net.state_dict().items()
+            if "running" in k or "num_batches" in k}
+
+
+def check_kernels_at(shapes, errs, gen, dt_name="f32", batch=1, match=True):
+    """Each kernel of a training path against its plain version at the
+    shapes that path gives it: the three decoder stages of every (h, w)
+    crop or canvas in `shapes` (non-square ones too), the heads at `batch`
+    samples' rows, and (with `match`) the ADD-S match of one symmetric
+    sample."""
+    from plr2_tpu_torch.ops import knn, mlp_head, upconv
+    dtype = torch.float32 if dt_name == "f32" else torch.bfloat16
+    for h, w in sorted(set(shapes)):
+        for div, cin, cout in ((8, 1024, 256), (4, 256, 64), (2, 64, 64)):
+            args = (_rand((batch, h // div, w // div, cin), gen, 1.0, dtype),
+                    _rand((3, 3, cin, cout), gen, (9 * cin) ** -0.5, dtype),
+                    _rand((cout,), gen, 0.1, dtype),
+                    torch.full((1,), 0.25, device=DEVICE, dtype=dtype))
+            got = upconv.upconv3x3_prelu(*args)
+            torch.cuda.synchronize()
+            e = compare(f"upconv3x3_prelu {dt_name} at {h}x{w} "
+                        f"{tuple(args[0].shape)}->{cout}", got,
+                        upconv.upconv3x3_prelu_plain(*args), TOL[dt_name])
+            errs[("upconv3x3_prelu", dt_name)] = max(
+                errs[("upconv3x3_prelu", dt_name)], e)
+            del args, got
+    for tag in HEAD_OUT:
+        x, params = head_inputs(tag, dtype, gen, batch=batch)
+        got = mlp_head.mlp_head(x, params)
+        torch.cuda.synchronize()
+        e = compare(f"mlp_head {tag} {dt_name} {tuple(x.shape)}", got,
+                    mlp_head.mlp_head_plain(x, params), TOL[dt_name])
+        errs[("mlp_head", dt_name)] = max(errs[("mlp_head", dt_name)], e)
+    if match:
+        q = _rand((1, NUM_POINTS * MESH_POINTS, 3), gen, 0.05)
+        t = _rand((1, MESH_POINTS, 3), gen, 0.05)
+        got, ref = knn.nn_match(q, t), knn.nn_match_plain(q, t)
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref):
+            raise AssertionError("nn_match at one sample's shape differs from its twin")
+        print(f"  nn_match one symmetric sample q {tuple(q.shape)} t "
+              f"{tuple(t.shape)}: equal to its twin ok")
+    torch.cuda.empty_cache()
+
+
+@phase("trainer")
+def trainer_phase(errs):
+    """Trainer.fit for 2 epochs on the library's frames (the margins fire the
+    decay and refine switches after epoch 1), best / last checkpoints and
+    their round trip, a stop mid-window, then one stage-1 epoch through the
+    kernels and through the plain versions from one state and seed."""
+    import tempfile
+    from plr2_tpu_torch import DenseFusionPipeline
+    from plr2_tpu_torch.ops import launch_counts, reset_launch_counts
+    from plr2_tpu_torch.train import CheckpointManager, Trainer
+    train_ds, test_ds = scene_dataset(TRAIN_FRAMES, 0), scene_dataset(TEST_FRAMES, 1)
+    n_tr, n_te = len(train_ds), len(test_ds)
+    s_tr = sum(is_sym(train_ds, i) for i in range(n_tr))
+    s_te = sum(is_sym(test_ds, i) for i in range(n_te))
+    crops = crop_shapes(train_ds) + crop_shapes(test_ds)
+    print(f"  {n_tr} train / {n_te} test samples ({s_tr} / {s_te} symmetric), "
+          f"crops {sorted(set(crops))}")
+    cfg = train_config(decay_margin=1e9, refine_margin=1e9)
+    tr = Trainer(cfg, device=DEVICE)
+    state = tr.init_state()
+    logs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = CheckpointManager(tmp)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        state = tr.fit(state, train_ds, test_ds, epochs=2, log_fn=logs.append,
+                       checkpoint_fn=lambda s, d: ckpt.save(s, d),
+                       save_last_fn=lambda s: ckpt.save(s, s.best_test, tag="last"))
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        seen = launch_counts()
+        for line in logs:
+            print(f"  {line}")
+        # per sample: one PoseNet forward (3 + 3 launches); the ADD-S match
+        # once a symmetric sample in stage 1 and in its test epoch, and
+        # once an iteration in the refine stage and in its test epoch
+        fwd = 3 * 2 * (n_tr + n_te)
+        expect = counts(mlp_head=fwd, upconv3x3_prelu=fwd,
+                        nn_match=(s_tr + s_te) * (1 + ITERS))
+        print(f"  launches in Trainer.fit (2 epochs, {fit_s:.2f} s): {seen}")
+        if seen != expect:
+            raise AssertionError(f"trainer: expected launches {expect}, got {seen}")
+        if not (state.epoch == 2 and state.decay_started and state.refine_started
+                and math.isclose(state.lr, LR * 0.3) and math.isclose(state.w, W * 0.3)):
+            raise AssertionError(f"trainer: the curriculum did not switch: {state}")
+        if sorted(os.listdir(tmp)) != ["best.pt", "last.pt"]:
+            raise AssertionError(f"trainer: checkpoints {os.listdir(tmp)}")
+        other = Trainer(train_config(seed=1), device=DEVICE)
+        back = ckpt.restore_into(other.init_state(), "last")
+        for a, b in ((tr.pipe.posenet, other.pipe.posenet),
+                     (tr.pipe.refiner, other.pipe.refiner)):
+            sa, sb = a.state_dict(), b.state_dict()
+            bad = [k for k in sa if not torch.equal(sa[k], sb[k])]
+            if bad:
+                raise AssertionError(f"restore_into differs on {bad[:5]}")
+        meta = (back.lr, back.w, back.decay_started, back.refine_started,
+                back.best_test, back.epoch)
+        if meta != (state.lr, state.w, True, True, state.best_test, 2):
+            raise AssertionError(f"restore_into meta {meta}")
+        opt_ids = {id(p) for g in back.optimizer.param_groups for p in g["params"]}
+        if opt_ids != {id(p) for p in other.pipe.refiner.parameters()}:
+            raise AssertionError("restore_into built Adam for the wrong network")
+        print("  checkpoints best/last written; restore_into of last: both "
+              "state dicts and the six curriculum fields exact, Adam over the "
+              "refiner ok")
+        del other, back
+
+    # a stop mid-window: BN back to the window's start, `last` saved
+    stop_tr = Trainer(cfg, device=DEVICE)
+    stop_state = stop_tr.init_state()
+    bn0 = bn_state(stop_tr.pipe.posenet)
+    calls = {"n": 0}
+
+    def stop_fn():
+        calls["n"] += 1
+        return calls["n"] > 3  # three samples of a window of WINDOW
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = CheckpointManager(tmp)
+        stop_state = stop_tr.fit(stop_state, train_ds, test_ds, epochs=2,
+                                 log_fn=logs.append,
+                                 save_last_fn=lambda s: ckpt.save(s, s.best_test, tag="last"),
+                                 stop_fn=stop_fn)
+        last = ckpt.restore("last")
+    bn1 = bn_state(stop_tr.pipe.posenet)
+    bad = [k for k in bn0 if not torch.equal(bn0[k], bn1[k])]
+    if bad or stop_state.epoch != 0 or last is None or last["meta"]["epoch"] != 0:
+        raise AssertionError(f"stop mid-window: BN changed {bad[:5]}, epoch "
+                             f"{stop_state.epoch}, last {last and last['meta']}")
+    print(f"  stop after 3 samples of a window of {WINDOW}: BN buffers equal to "
+          "the window-start snapshot, last saved at epoch 0 ok")
+    del stop_tr, stop_state
+
+    # one stage-1 epoch through the plain versions, then through the kernels
+    # from the same state and seed; each window of the kernel run starts
+    # from the plain run's parameters
+    runs = {}
+    for name, use_kernels in (("plain", False), ("kernels", True)):
+        pipe = DenseFusionPipeline(NUM_POINTS, NUM_OBJ, use_kernels=use_kernels,
+                                   device=DEVICE, seed=0)
+        forced = runs["plain"][0].after_steps if use_kernels else None
+        rt = recording_trainer(Trainer, train_config(), pipe, forced)
+        st, info = rt.train_epoch(rt.init_state(), train_ds,
+                                  torch.Generator().manual_seed(5))
+        torch.cuda.synchronize()
+        runs[name] = (rt, st, info)
+    (pk, _, ip), (kk, kst, ik) = runs["plain"], runs["kernels"]
+    worst = max(abs(a - b) / max(abs(b), 1e-30)
+                for a, b in zip(ik["losses"], ip["losses"]))
+    worst_dis = max(abs(a - b) / max(abs(b), 1e-30)
+                    for a, b in zip(ik["dists"], ip["dists"]))
+    param_l2 = 0.0
+    for a, b in zip(kk.after_steps, pk.after_steps):
+        num = sum(float((a[n] - b[n]).pow(2).sum()) for n in a)
+        param_l2 = max(param_l2, (num / sum(float(b[n].pow(2).sum()) for n in a)) ** 0.5)
+    ok = worst <= EPOCH_TOL["loss"] and param_l2 <= EPOCH_TOL["param_l2"]
+    print(f"  stage-1 epoch ({n_tr} samples, {len(pk.after_steps)} windows) "
+          f"kernels vs plain: per-sample loss max rel {worst:.2e} (tol "
+          f"{EPOCH_TOL['loss']:g}); PoseNet's parameters after each window, "
+          f"relative L2, max {param_l2:.2e} (tol {EPOCH_TOL['param_l2']:g}) "
+          f"{'ok' if ok else 'FAIL'}; per-sample dis max rel {worst_dis:.2e} "
+          "(not gated: the best-confidence hypothesis's distance, where a "
+          "confidence near-tie within f32 noise may pick another point)")
+    if not ok:
+        raise AssertionError("trainer: kernel epoch disagrees with the plain epoch")
+    del runs, pk
+    torch.cuda.empty_cache()
+    check_kernels_at(crops, errs, torch.Generator().manual_seed(8))
+    return {"trainer": seen}, {"tr": tr, "state": state, "stage1": kk,
+                               "stage1_state": kst, "train_ds": train_ds,
+                               "fit_s": fit_s}
+
+
+@phase("fused")
+def fused_phase(train_ds, errs):
+    """One FusedTrainer epoch (window WINDOW, f32), then a window on its
+    shared canvas against WINDOW per-sample steps of the same samples."""
+    from plr2_tpu_torch.ops import launch_counts, reset_launch_counts
+    from plr2_tpu_torch.parallel import TrainStep
+    from plr2_tpu_torch.parallel.data_parallel import BATCH_KEYS
+    from plr2_tpu_torch.train import FusedTrainer, make_fused_window_grads
+    n = len(train_ds)
+    s_n = sum(is_sym(train_ds, i) for i in range(n))
+    ftr = FusedTrainer(train_config(), device=DEVICE)
+    state = ftr.init_state()
+    reset_launch_counts()
+    state, info = ftr.train_epoch(state, train_ds, torch.Generator().manual_seed(6))
+    torch.cuda.synchronize()
+    seen = launch_counts()
+    print(f"  launches in one FusedTrainer epoch ({n} samples, window {WINDOW}, "
+          f"{info['seconds']:.2f} s): {seen}")
+    expect = counts(mlp_head=3 * n, upconv3x3_prelu=3 * n, nn_match=s_n)
+    if seen != expect:
+        raise AssertionError(f"fused: expected launches {expect}, got {seen}")
+    samples = list(ftr._sample_iter(train_ds, torch.Generator().manual_seed(7),
+                                    add_noise=True, shuffle=False, seed=0))[:WINDOW]
+    win = ftr._stack_eval(samples)
+    net = ftr.pipe.posenet
+    bn0 = bn_state(net)
+
+    def loop_grads():
+        """WINDOW per-sample steps of the same samples (the Trainer's
+        per-sample code), from the same BN state and dropout seed."""
+        net.load_state_dict({**net.state_dict(), **bn0})
+        step = TrainStep(ftr.pipe, SYM_LIST, W)
+        net.zero_grad(set_to_none=True)
+        gen = torch.Generator().manual_seed(9)
+        losses = torch.stack([step.accumulate(
+            {k: win[k][i:i + 1] for k in BATCH_KEYS}, gen)[0]
+            for i in range(WINDOW)])
+        torch.cuda.synchronize()
+        return {k: p.grad.clone() for k, p in net.named_parameters()}, losses
+
+    def rel_l2(a, b):
+        return max((float((a[k] - b[k]).norm() / b[k].norm().clamp(min=1e-30)), k)
+                   for k in b)
+
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        fused_losses, _ = make_fused_window_grads(ftr.pipe, SYM_LIST, W)(
+            win, torch.Generator().manual_seed(9))
+        torch.cuda.synchronize()
+        g_fused = {k: p.grad.clone() for k, p in net.named_parameters()}
+        g_loop, loop_losses = loop_grads()
+        g_again, _ = loop_grads()
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    net.zero_grad(set_to_none=True)
+    rel, worst_name = rel_l2(g_fused, g_loop)
+    floor, floor_name = rel_l2(g_again, g_loop)
+    equal = sum(torch.equal(g_fused[k], g_loop[k]) for k in g_loop)
+    dl = float((fused_losses - loop_losses).abs().max() / loop_losses.abs().max())
+    ok = rel <= FUSED_TOL and dl <= FUSED_TOL
+    print(f"  window of {WINDOW} on a {win['img'].shape[1]} px canvas vs {WINDOW} "
+          f"per-sample steps: losses max rel {dl:.2e}; gradients max rel L2 "
+          f"{rel:.2e} ({worst_name}), {equal}/{len(g_loop)} tensors bit-equal "
+          f"(tol {FUSED_TOL:g}); the same per-sample loop run twice differs by "
+          f"{floor:.2e} ({floor_name}): the card's atomic adds (the gather's "
+          f"and the resize's backward) reorder sums {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("fused window differs from the per-sample steps")
+    canvas = win["img"].shape[1]
+    check_kernels_at([(canvas, canvas)], errs, torch.Generator().manual_seed(10),
+                     match=False)
+    return {"fused": seen}, {"ftr": ftr, "win": win, "epoch_s": info["seconds"]}
+
+
+@phase("mixed")
+def mixed_phase(errs):
+    """BatchTrainer in bf16 mixed precision, batch MIXED_BATCH, stage 1, for
+    MIXED_STEPS steps through the kernels; the same epoch through the plain
+    versions and in f32, from one state and seed."""
+    import numpy as np
+    from plr2_tpu_torch import DenseFusionPipeline
+    from plr2_tpu_torch.ops import launch_counts, mlp_head, reset_launch_counts, upconv
+    from plr2_tpu_torch.train import BatchTrainer
+    ds = scene_dataset(MIXED_BATCH * MIXED_STEPS // PER_FRAME, 2)
+    n = len(ds)
+    order = np.arange(n)
+    np.random.default_rng(0).shuffle(order)  # BatchTrainer's epoch-0 order
+    batches_with_sym = sum(any(is_sym(ds, int(i)) for i in order[b:b + MIXED_BATCH])
+                           for b in range(0, n, MIXED_BATCH))
+    from plr2_tpu_torch.train.trainer import snap_canvas
+    crops = crop_shapes(ds)
+    canvases = [max(snap_canvas(max(max(crops[int(i)]) for i in order[b:b + MIXED_BATCH])),
+                    CROP) for b in range(0, n, MIXED_BATCH)]
+    dtypes = set()
+    orig = mlp_head.mlp_head_forward, upconv.upconv3x3_prelu_forward
+
+    def head(x, params):
+        dtypes.add(("mlp_head", x.dtype, params[0][0].dtype))
+        return orig[0](x, params)
+
+    def up(x, w, b, a):
+        dtypes.add(("upconv3x3_prelu", x.dtype, w.dtype))
+        return orig[1](x, w, b, a)
+
+    runs = {}
+    for name, use_kernels, dt_name in (("mixed", True, "bfloat16"),
+                                       ("mixed_plain", False, "bfloat16"),
+                                       ("f32", True, "float32")):
+        cfg = train_config(dtype=dt_name, batch_size=MIXED_BATCH)
+        pipe = DenseFusionPipeline(NUM_POINTS, NUM_OBJ, use_kernels=use_kernels,
+                                   device=DEVICE, seed=0,
+                                   dtype=torch.bfloat16 if dt_name == "bfloat16"
+                                   else torch.float32)
+        btr = BatchTrainer(cfg, pipe=pipe)
+        state = btr.init_state()
+        if name == "mixed":
+            reset_launch_counts()
+            mlp_head.mlp_head_forward, upconv.upconv3x3_prelu_forward = head, up
+        try:
+            state, info = btr.train_epoch(state, ds, torch.Generator().manual_seed(3))
+            torch.cuda.synchronize()
+        finally:
+            mlp_head.mlp_head_forward, upconv.upconv3x3_prelu_forward = orig
+        if name == "mixed":
+            seen = launch_counts()
+            print(f"  launches in {MIXED_STEPS} mixed-precision BatchTrainer steps "
+                  f"at batch {MIXED_BATCH}: {seen}; kernel operand dtypes "
+                  f"{sorted((k, str(a), str(b)) for k, a, b in dtypes)}")
+            expect = counts(mlp_head=3 * MIXED_STEPS, upconv3x3_prelu=3 * MIXED_STEPS,
+                            nn_match=batches_with_sym)
+            if seen != expect:
+                raise AssertionError(f"mixed: expected launches {expect}, got {seen}")
+            if {(a, b) for _, a, b in dtypes} != {(torch.bfloat16, torch.bfloat16)}:
+                raise AssertionError(f"mixed: kernels saw dtypes {dtypes}")
+            f32 = [(k, t.dtype) for net in (pipe.posenet, pipe.refiner)
+                   for k, t in net.state_dict().items()
+                   if t.dtype not in (torch.float32, torch.int64)]
+            f32 += [("adam", v.dtype) for s in state.optimizer.state.values()
+                    for k, v in s.items() if k.startswith("exp_avg")
+                    and v.dtype != torch.float32]
+            if f32:
+                raise AssertionError(f"mixed: state not f32: {f32[:5]}")
+            print("  parameters, BN statistics and Adam's moments stay f32 ok")
+            runs["btr"], runs["state"] = btr, state
+        runs[name] = info["losses"]
+        if name != "mixed":
+            del btr, pipe, state
+        torch.cuda.empty_cache()
+    kp = max(abs(a - b) / abs(b) for a, b in zip(runs["mixed"], runs["mixed_plain"]))
+    kf = max(abs(a - b) / abs(b) for a, b in zip(runs["mixed"], runs["f32"]))
+    ok = kp <= MIXED_TOL["kernel_vs_plain"] and kf <= MIXED_TOL["vs_f32"]
+    print(f"  losses: mixed {runs['mixed']}, mixed plain {runs['mixed_plain']}, "
+          f"f32 {runs['f32']}; kernels vs plain max rel {kp:.2e} (tol "
+          f"{MIXED_TOL['kernel_vs_plain']:g}), mixed vs f32 max rel {kf:.2e} "
+          f"(tol {MIXED_TOL['vs_f32']:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("mixed precision: losses disagree")
+    check_kernels_at([(c, c) for c in canvases], errs,
+                     torch.Generator().manual_seed(14), "bf16", MIXED_BATCH,
+                     match=False)
+    return {"mixed": seen}, {"btr": runs["btr"], "state": runs["state"], "ds": ds}
+
+
+@phase("train entry timing")
+def entry_timing_phase(trainer_out, fused_out, mixed_out):
+    """Samples/s of the per-sample Trainer in both stages (host clock around
+    a synchronised epoch), FusedTrainer ms per window, mixed bf16 BatchTrainer
+    ms per step at batch MIXED_BATCH, and the CLI's wall time for 2 synthetic
+    epochs on the card."""
+    import tempfile
+    from plr2_tpu_torch.train import make_fused_accum_step
+    out = {}
+    ds = trainer_out["train_ds"]
+    from plr2_tpu_torch.train import Trainer
+    stage1 = Trainer(train_config(), pipe=trainer_out["stage1"].pipe)
+    for stage, tr, state in (
+            ("stage1", stage1, trainer_out["stage1_state"]),
+            ("refine", trainer_out["tr"], trainer_out["state"])):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.train_epoch(state, ds, torch.Generator().manual_seed(11))
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+        out[f"trainer_{stage}_samples_per_s"] = len(ds) / s
+        print(f"  Trainer {stage} epoch f32: {len(ds)} samples in {s:.3f} s = "
+              f"{len(ds) / s:.1f} samples/s (per-sample steps at their own crops)")
+    # where a per-sample step's time goes: one stage-1 sample's forward and
+    # backward (no optimizer step) under the profiler
+    from torch.profiler import ProfilerActivity, profile
+    from plr2_tpu_torch.train.trainer import sample_batch
+    sample = next(iter(stage1._sample_iter(ds, torch.Generator().manual_seed(15),
+                                           add_noise=True, shuffle=False, seed=0)))
+    one = stage1.stage_step(trainer_out["stage1_state"])
+    b, gen = sample_batch(sample), torch.Generator().manual_seed(16)
+    one.accumulate(b, gen)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        one.accumulate(b, gen)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    one.network.zero_grad(set_to_none=True)
+    out["sample_step_wall_ms"] = wall
+    out["sample_step_device_ms"] = top_device_kernels(
+        prof, wall, f"one per-sample stage-1 step (forward and backward) at "
+        f"{tuple(sample.img.shape[:2])}", 8)
+    ftr, win = fused_out["ftr"], fused_out["win"]
+    step = make_fused_accum_step(ftr.pipe, SYM_LIST, W, lr=LR)
+    gen = torch.Generator().manual_seed(12)
+    step(win, gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        step(win, gen)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / 3
+    out["fused_window_ms"] = ms
+    out["fused_epoch_ms_per_window"] = fused_out["epoch_s"] * 1e3 / (len(ds) // WINDOW)
+    print(f"  FusedTrainer window of {WINDOW} f32 on a {win['img'].shape[1]} px "
+          f"canvas: {ms:.3f} ms per window ({WINDOW * 1e3 / ms:.1f} samples/s); "
+          f"its epoch {out['fused_epoch_ms_per_window']:.3f} ms per window with "
+          "the data path (first epoch)")
+    btr, state = mixed_out["btr"], mixed_out["state"]
+    samples = list(btr._sample_iter(mixed_out["ds"], torch.Generator().manual_seed(13),
+                                    add_noise=True, shuffle=False, seed=0))
+    batch = btr._stack_eval(samples[:MIXED_BATCH])
+    mstep = btr.stage_step(state)
+    ms = step_ms(mstep, batch, 5)
+    out["mixed_ms"], out["mixed_samples_per_s"] = ms, MIXED_BATCH * 1e3 / ms
+    print(f"  mixed bf16 stage-1 step batch {MIXED_BATCH} ({batch['img'].shape[1]} px "
+          f"canvas): {ms:.3f} ms = {MIXED_BATCH * 1e3 / ms:.1f} samples/s")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "plr2_tpu_torch.tools.train", "--synthetic",
+             "--nepoch", "2", "--outf", tmp, "--log_dir", tmp],
+            cwd=ROOT, capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        if res.returncode != 0 or sorted(os.listdir(Path(tmp) / "linemod")) != [
+                "best.pt", "last.pt"]:
+            raise AssertionError(f"CLI failed: {res.stderr[-3000:]}")
+    out["cli_wall_s"] = wall
+    for line in (res.stderr + res.stdout).splitlines():
+        if "epoch" in line or "training" in line:
+            print(f"  cli: {line}")
+    print(f"  python -m plr2_tpu_torch.tools.train --synthetic --nepoch 2 (LineMOD "
+          f"preset: 13 objects, 500 points; 8 train / 4 test samples): "
+          f"{wall:.2f} s wall, process start included")
+    return out
 
 
 def _tf32_flags():
@@ -1280,6 +1838,7 @@ def quant_timing_phase(pipe, heads, qheads, seen, max_err):
                 "launches": seen["quantized_mlp_head"],
                 "launches_by_path": {"estimate_f32": 0, "estimate_bf16": 0,
                                      "train_stage1": 0, "train_refine": 0,
+                                     "trainer": 0, "fused": 0, "mixed": 0,
                                      "quant": seen["quantized_mlp_head"]},
                 "max_abs_err": max_err, "ms": t["ms"], "plain_ms": t["plain_ms"],
                 "bound_ms": bound,
@@ -1307,6 +1866,14 @@ def main():
     kern, launches = main_path_phase()
     tkern, batch, train_launches, train_result = train_phase()
     launches.update(train_launches)
+    trainer_launches, trainer_out = trainer_phase(errs)
+    fused_launches, fused_out = fused_phase(trainer_out["train_ds"], errs)
+    mixed_launches, mixed_out = mixed_phase(errs)
+    for more in (trainer_launches, fused_launches, mixed_launches):
+        launches.update(more)
+    entry_times = entry_timing_phase(trainer_out, fused_out, mixed_out)
+    del trainer_out, fused_out, mixed_out
+    torch.cuda.empty_cache()
     frames, entries, est_profile = timing_phase(kern, launches, errs)
     kern.cast(torch.float32)
     tf32 = tf32_phase(kern)
@@ -1320,6 +1887,7 @@ def main():
     print(f"summary: build {build_s:.2f} s, total {time.perf_counter() - t0:.2f} s, "
           f"frames/s {json.dumps({k: round(v, 1) for k, v in frames.items()})}, "
           f"train {json.dumps({k: round(v, 3) for k, v in train_times.items()})}, "
+          f"train entry {json.dumps({k: round(v, 3) for k, v in entry_times.items()})}, "
           f"tf32 {json.dumps({k: round(v, 6) for k, v in tf32.items()})}, "
           f"estimate profiles {json.dumps({d: {k: round(v, 3) for k, v in p.items()} for d, p in est_profile.items()})}")
     print(smi)

@@ -1,5 +1,5 @@
-"""Pose composition and re-centring, the port of the parts of
-plr2_tpu/geometry/pointcloud.py that the estimate runs.
+"""Depth backprojection, pose application, composition and re-centring,
+the port of plr2_tpu/geometry/pointcloud.py.
 
 Poses are (q, t) with q a wxyz quaternion; clouds are row-vector (..., N, 3)
 arrays. These products touch metric coordinates, so in f32 they must run
@@ -15,6 +15,31 @@ from __future__ import annotations
 import torch
 
 from plr2_tpu_torch.geometry.quaternion import quat_multiply, quat_to_matrix_df
+
+
+def backproject_depth(depth, ymap, xmap, cam_cx, cam_cy, cam_fx, cam_fy,
+                      cam_scale):
+    """Pinhole backprojection of flat (N,) selected pixels -> (N, 3):
+    z = depth / cam_scale, x = (xmap - cx) z / fx, y = (ymap - cy) z / fy
+    (xmap the column, ymap the row), the JAX function's arithmetic."""
+    z = depth / cam_scale
+    x = (xmap - cam_cx) * z / cam_fx
+    y = (ymap - cam_cy) * z / cam_fy
+    return torch.stack([x, y, z], dim=-1)
+
+
+def transform_points(points, r, t):
+    """(..., N, 3) @ r^T + t: the reference's np.dot(points, R.T) + t, as
+    broadcast products and sums in the inputs' dtype (never TF32)."""
+    out = (points[..., :, 0, None] * r[..., None, :, 0]
+           + points[..., :, 1, None] * r[..., None, :, 1]
+           + points[..., :, 2, None] * r[..., None, :, 2])
+    return out + t[..., None, :]
+
+
+def apply_pose_quat(points, q, t):
+    """Apply the pose of a normalised wxyz quaternion and a translation."""
+    return transform_points(points, quat_to_matrix_df(q), t)
 
 
 def _matmul(a, b):

@@ -26,13 +26,22 @@ class BatchNorm2d(nn.BatchNorm2d):
     does: ``0.9 * old + 0.1 * batch`` with the BIASED variance
     ``max(0, E[x^2] - E[x]^2)``. torch's own update uses the unbiased
     variance, a relative gap of 1/(n-1) at n = B*H*W values per channel.
-    Eval mode is torch's.
+    Eval mode is torch's. Under mixed precision (x bf16, parameters and
+    statistics f32) both modes compute in f32 and return x's dtype.
     """
 
     def __init__(self, num_features: int):
         super().__init__(num_features, eps=1e-5, momentum=0.1)
 
     def forward(self, x):
+        if x.dtype != self.weight.dtype:
+            # mixed precision (bf16 activations, f32 parameters and
+            # statistics): statistics and normalisation in f32, the output
+            # in x's dtype, as flax's BatchNorm(dtype=bfloat16) computes
+            return self._forward(x.float()).to(x.dtype)
+        return self._forward(x)
+
+    def _forward(self, x):
         if not self.training:
             return super().forward(x)
         with torch.no_grad():

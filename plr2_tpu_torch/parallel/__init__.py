@@ -1,3 +1,4 @@
-from plr2_tpu_torch.parallel.data_parallel import TrainStep, make_train_step
+from plr2_tpu_torch.parallel.data_parallel import (TrainStep, adam,
+                                                   make_train_step)
 
-__all__ = ["TrainStep", "make_train_step"]
+__all__ = ["TrainStep", "adam", "make_train_step"]

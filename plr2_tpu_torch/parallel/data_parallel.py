@@ -17,16 +17,25 @@ Two stages, as in the JAX package (reference stage semantics):
   Adam on PoseRefineNet's parameters. Reported `dis` is the last
   iteration's mean.
 
-Adam is `torch.optim.Adam(lr, betas=(0.9, 0.999), eps=1e-8)`, optax's
-`adam` defaults; the two differ only in rounding. An f32 pipeline's step
-runs with TF32 off (`pipeline.full_f32`), whatever the caller set. The
-step runs on the pipeline's device ("cuda" unless the pipeline was built
-with device="cpu"); the batch is moved there.
+Adam is `torch.optim.Adam(lr, betas=(0.9, 0.999), eps=1e-8)` (`adam`),
+optax's `adam` defaults; the two differ only in rounding. The optimizer
+belongs to the caller where it passes one (a trainer keeps it in its
+`TrainState`, so Adam's moments live across epochs and are rebuilt only
+at a curriculum switch or a resume); otherwise the step builds its own
+from `lr`. `accumulate` runs the forward and backward of one batch and
+adds its gradients into the parameters' `.grad` without stepping (the
+per-sample trainers sum a window's gradients this way); calling the step
+is zero_grad, `accumulate`, one optimizer step. A mixed-precision
+pipeline (`DenseFusionPipeline(dtype=torch.bfloat16)`) runs the networks
+in bf16 over its f32 parameters. An f32 pipeline's step runs with TF32
+off (`pipeline.full_f32`), whatever the caller set. The step runs on the
+pipeline's device ("cuda" unless the pipeline was built with
+device="cpu"); the batch is moved there.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Sequence
+from typing import Dict, Mapping, Optional, Sequence
 
 import torch
 
@@ -37,13 +46,23 @@ from plr2_tpu_torch.pipeline import full_f32
 BATCH_KEYS = ("img", "points", "choose", "target", "model_points", "idx")
 
 
+def adam(module: torch.nn.Module, lr: float) -> torch.optim.Adam:
+    """Adam over `module`'s parameters at optax's defaults."""
+    return torch.optim.Adam(module.parameters(), lr=lr, betas=(0.9, 0.999),
+                            eps=1e-8)
+
+
 class TrainStep:
     """`step(batch, generator) -> {"loss": ..., "dis": ...}` (0-d tensors,
     not synchronised). `batch` is a mapping of `BATCH_KEYS` with a leading
-    batch axis; `generator` draws stage 1's dropout masks."""
+    batch axis; `generator` draws stage 1's dropout masks. `optimizer`
+    (over the stage's network: PoseNet in stage 1, PoseRefineNet in the
+    refine stage) is the caller's; without one the step builds
+    `adam(network, lr)`, and with neither it can only `accumulate`."""
 
-    def __init__(self, pipe, sym_list: Sequence[int], w: float, lr: float,
-                 refine_iterations: int = 0):
+    def __init__(self, pipe, sym_list: Sequence[int], w: float,
+                 lr: Optional[float] = None, refine_iterations: int = 0,
+                 optimizer: Optional[torch.optim.Optimizer] = None):
         self.pipe = pipe
         self.sym_list = tuple(sym_list)
         self.w = w
@@ -51,9 +70,15 @@ class TrainStep:
         # a pipeline built with use_kernels=False runs every kernel's
         # plain version, the loss's match included
         self.use_kernels = pipe.posenet.use_kernels
-        target = pipe.refiner if self.refine_stage else pipe.posenet
-        self.optimizer = torch.optim.Adam(target.parameters(), lr=lr,
-                                          betas=(0.9, 0.999), eps=1e-8)
+        if optimizer is None and lr is not None:
+            optimizer = adam(self.network, lr)
+        # None: the step only accumulates (`accumulate`)
+        self.optimizer = optimizer
+
+    @property
+    def network(self) -> torch.nn.Module:
+        """The network this stage trains."""
+        return self.pipe.refiner if self.refine_stage else self.pipe.posenet
 
     @property
     def refine_stage(self) -> bool:
@@ -64,9 +89,9 @@ class TrainStep:
                 for k in BATCH_KEYS}
 
     def _stage1_loss(self, b, generator):
-        posenet = self.pipe.posenet.train()
-        pred_r, pred_t, pred_c, _ = posenet(b["img"], b["points"], b["choose"],
-                                            b["idx"], generator)
+        self.pipe.posenet.train()
+        pred_r, pred_t, pred_c, _ = self.pipe.run_posenet(
+            b["img"], b["points"], b["choose"], b["idx"], generator)
         out = pose_loss(pred_r, pred_t, pred_c, b["target"],
                         b["model_points"], b["idx"], b["points"], w=self.w,
                         refine=False, sym_list=self.sym_list,
@@ -74,11 +99,11 @@ class TrainStep:
         return out.loss, out.dis.mean()
 
     def _refine_loss(self, b):
-        posenet = self.pipe.posenet.eval()
+        self.pipe.posenet.eval()
         self.pipe.refiner.train()
         with torch.no_grad():
-            pred_r, pred_t, pred_c, emb = posenet(b["img"], b["points"],
-                                                  b["choose"], b["idx"])
+            pred_r, pred_t, pred_c, emb = self.pipe.run_posenet(
+                b["img"], b["points"], b["choose"], b["idx"])
             out = pose_loss(pred_r, pred_t, pred_c, b["target"],
                             b["model_points"], b["idx"], b["points"],
                             w=self.w, refine=True, sym_list=self.sym_list,
@@ -86,7 +111,7 @@ class TrainStep:
         new_points, new_target = out.new_points, out.new_target
         loss = 0.0
         for _ in range(self.refine_iterations):
-            dr, dt = self.pipe.refiner(new_points, emb, b["idx"])
+            dr, dt = self.pipe.run_refiner(new_points, emb, b["idx"])
             ro = refine_loss(dr, dt, new_target, b["model_points"], b["idx"],
                              new_points, sym_list=self.sym_list,
                              use_kernels=self.use_kernels)
@@ -94,24 +119,40 @@ class TrainStep:
             loss = loss + ro.dis.mean()
         return loss, ro.dis.mean()
 
-    def __call__(self, batch: Mapping,
-                 generator: torch.Generator = None) -> Dict[str, torch.Tensor]:
+    def accumulate(self, batch: Mapping,
+                   generator: torch.Generator = None):
+        """Forward and backward of `batch`: its gradients are ADDED into
+        the network's `.grad` (no optimizer step). Returns (loss, dis),
+        0-d tensors, not synchronised."""
         b = self._batch(batch)
-        self.optimizer.zero_grad(set_to_none=True)
         with full_f32(self.pipe.dtype == torch.float32):
             if self.refine_stage:
                 loss, dis = self._refine_loss(b)
             else:
                 loss, dis = self._stage1_loss(b, generator)
             loss.backward()
-            self.optimizer.step()
         self.pipe.posenet.eval()
         self.pipe.refiner.eval()
-        return {"loss": loss.detach(), "dis": dis.detach()}
+        return loss.detach(), dis.detach()
+
+    def apply(self) -> None:
+        """One optimizer step on the accumulated gradients, then clear them."""
+        self.optimizer.step()
+        self.optimizer.zero_grad(set_to_none=True)
+
+    def __call__(self, batch: Mapping,
+                 generator: torch.Generator = None) -> Dict[str, torch.Tensor]:
+        self.optimizer.zero_grad(set_to_none=True)
+        loss, dis = self.accumulate(batch, generator)
+        self.optimizer.step()
+        return {"loss": loss, "dis": dis}
 
 
-def make_train_step(pipe, sym_list: Sequence[int], w: float, lr: float,
-                    refine_iterations: int = 0) -> TrainStep:
+def make_train_step(pipe, sym_list: Sequence[int], w: float,
+                    lr: Optional[float] = None, refine_iterations: int = 0,
+                    optimizer: Optional[torch.optim.Optimizer] = None
+                    ) -> TrainStep:
     """The train step of `pipe` (a `DenseFusionPipeline`): stage 1 with
-    `refine_iterations=0`, else the refine stage."""
-    return TrainStep(pipe, sym_list, w, lr, refine_iterations)
+    `refine_iterations=0`, else the refine stage; Adam at `lr` unless the
+    caller passes its `optimizer`."""
+    return TrainStep(pipe, sym_list, w, lr, refine_iterations, optimizer)

@@ -9,9 +9,17 @@ hand-written CUDA kernels (plain PyTorch only for CPU tensors); with
 `use_kernels=False` they run the kernels' plain versions on any device,
 which is how a run on the card compares the two.
 
-Modes: float32 (reference parity) and, after `cast(torch.bfloat16)`, the
+Modes: float32 (reference parity); after `cast(torch.bfloat16)`, the
 bf16 fast-inference mode (the counterpart of `cast_variables`): network
-parameters and activations in bf16. The pose arithmetic (best hypothesis,
+parameters and activations in bf16; and, built with
+`dtype=torch.bfloat16`, mixed precision (the JAX pipeline built with
+`dtype=bfloat16` over f32 variables, as its Trainer trains): parameters,
+BatchNorm statistics and the optimizer's state stay f32, and each call
+(`run_posenet`, `run_refiner`) casts the parameters to bf16 with autograd
+through the cast, so the bf16 kernels run on bf16 activations and the
+gradients reach the f32 parameters. BatchNorm keeps its scale and shift
+in f32 and normalises in f32 (flax's `BatchNorm(dtype=bfloat16)`); the
+losses cast their inputs to f32. The pose arithmetic (best hypothesis,
 re-centring, composition) sees the dtypes it sees in the JAX pipeline at
 `dtype=bfloat16`: the quaternion is normalised and composed in bf16, the
 translation is f32 (f32 cloud + bf16 offset, torch's promotion as jnp's),
@@ -31,6 +39,7 @@ from typing import Mapping, NamedTuple, Optional
 import torch
 
 from plr2_tpu_torch.models.posenet import PoseNet, PoseRefineNet
+from plr2_tpu_torch.models.resnet import BatchNorm2d
 from plr2_tpu_torch.models.weights import (init_random_, posenet_state_dict,
                                            refinenet_state_dict)
 from plr2_tpu_torch.refine.iterative import initial_pose, iterative_refine
@@ -70,10 +79,14 @@ def resolve_device(device) -> torch.device:
 class DenseFusionPipeline:
     def __init__(self, num_points: int, num_objects: int, emb_dim: int = 32,
                  use_kernels: bool = True, device="cuda",
-                 seed: Optional[int] = 0):
+                 seed: Optional[int] = 0, dtype=torch.float32):
         """Builds PoseNet and PoseRefineNet in eval mode on `device`, with
         weights from `torch.Generator().manual_seed(seed)` (or left
-        uninitialised with seed=None, for `load_jax_variables`)."""
+        uninitialised with seed=None, for `load_jax_variables`). `dtype` is
+        the compute dtype: float32, or bfloat16 for mixed precision over
+        f32 parameters."""
+        if dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"compute dtype {dtype}: float32 or bfloat16")
         self.device = resolve_device(device)
         with torch.device("meta"):
             posenet = PoseNet(num_points, num_objects, emb_dim, use_kernels)
@@ -84,7 +97,15 @@ class DenseFusionPipeline:
             g = torch.Generator().manual_seed(seed)
             init_random_(self.posenet, g)
             init_random_(self.refiner, g)
-        self.dtype = torch.float32
+        self.dtype = dtype
+        self.mixed = dtype != torch.float32
+        # parameters that mixed precision keeps f32: BatchNorm's scale and
+        # shift (flax's BatchNorm computes in f32 whatever its dtype)
+        self._keep_f32 = {
+            net: {f"{mn}.{pn}" for mn, m in net.named_modules()
+                  if isinstance(m, BatchNorm2d)
+                  for pn, _ in m.named_parameters(recurse=False)}
+            for net in (self.posenet, self.refiner)}
 
     def load_jax_variables(self, variables: Mapping) -> "DenseFusionPipeline":
         """Load the JAX pipeline's {"posenet": ..., "refiner": ...} variables
@@ -100,15 +121,34 @@ class DenseFusionPipeline:
         self.posenet.to(dtype)
         self.refiner.to(dtype)
         self.dtype = dtype
+        self.mixed = False
         return self
+
+    def _call(self, net, *args):
+        if not self.mixed:
+            return net(*args)
+        keep = self._keep_f32[net]
+        params = {n: p if n in keep else p.to(self.dtype)
+                  for n, p in net.named_parameters()}
+        return torch.func.functional_call(net, params, args)
+
+    def run_posenet(self, img, cloud, choose, obj, generator=None):
+        """PoseNet in the pipeline's mode (mixed precision casts the
+        parameters for this call); `generator` draws train-mode dropout."""
+        return self._call(self.posenet, img, cloud, choose, obj, generator)
+
+    def run_refiner(self, cloud, emb, obj):
+        """PoseRefineNet in the pipeline's mode."""
+        return self._call(self.refiner, cloud, emb, obj)
 
     @torch.no_grad()
     def estimate(self, img, cloud, choose, obj,
                  refine_iterations: int = 2) -> PoseEstimate:
         """(B,H,W,3) crop + (B,N,3) cloud + (B,N) choose + (B,) obj -> pose."""
         with full_f32(self.dtype == torch.float32):
-            pred_r, pred_t, pred_c, emb = self.posenet(img, cloud, choose, obj)
+            pred_r, pred_t, pred_c, emb = self.run_posenet(img, cloud, choose,
+                                                           obj)
             q0, t0 = initial_pose(pred_r, pred_t, pred_c, cloud)
-            q, t = iterative_refine(self.refiner, cloud, emb, obj, q0, t0,
+            q, t = iterative_refine(self.run_refiner, cloud, emb, obj, q0, t0,
                                     refine_iterations)
         return PoseEstimate(quat=q, trans=t, confidence=pred_c[..., 0].amax(-1))

@@ -1,0 +1,184 @@
+"""Training CLI, the port of tools/train.py (the reference's argparse
+surface) over this package's trainers:
+
+  python -m plr2_tpu_torch.tools.train --synthetic --nepoch 2          # card
+  python -m plr2_tpu_torch.tools.train --synthetic --nepoch 2 --cpu    # CPU
+
+Runs `Trainer` (per-sample accumulation), `FusedTrainer` (--fused) or
+`BatchTrainer` (--batched) `.fit` on synthetic frames, writes `best` and
+`last` checkpoints under `<outf>/<dataset>/`, resumes from `last` when it
+exists, and stops cleanly on SIGTERM / SIGINT (the first signal is a
+request that `fit` honours at the next sample or batch boundary; a second
+one aborts). The card is the default device; without CUDA it raises
+unless --cpu is given.
+
+Flags of the JAX CLI that this port does not run raise
+NotImplementedError with the ROADMAP item that brings them: real datasets
+(--dataset_root, or no --synthetic), --config (YAML), --workers > 0,
+--data_parallel / --model_parallel > 1, --pretrained_trunk, --cache_mb.
+--sym_slots is accepted and is a no-op (the port's ADD-S runs on the
+symmetric rows alone).
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(prog="python -m plr2_tpu_torch.tools.train")
+    p.add_argument("--config", type=str, default="",
+                   help="YAML experiment config (not ported: raises)")
+    p.add_argument("--dataset", choices=["ycb", "linemod"], default="linemod")
+    p.add_argument("--dataset_root", type=str, default="",
+                   help="real dataset root (not ported: raises)")
+    p.add_argument("--batch_size", type=int, default=8)
+    p.add_argument("--workers", type=int, default=0,
+                   help="host data-plane worker threads (> 0 not ported)")
+    p.add_argument("--lr", type=float, default=1e-4)
+    p.add_argument("--lr_rate", type=float, default=0.3)
+    p.add_argument("--w", type=float, default=0.015)
+    p.add_argument("--w_rate", type=float, default=0.3)
+    p.add_argument("--decay_margin", type=float, default=0.016)
+    p.add_argument("--refine_margin", type=float, default=0.013)
+    p.add_argument("--noise_trans", type=float, default=0.03)
+    p.add_argument("--iteration", type=int, default=2)
+    p.add_argument("--nepoch", type=int, default=500)
+    p.add_argument("--repeat_epoch", type=int, default=1)
+    p.add_argument("--pretrained_trunk", type=str, default="",
+                   help="torchvision resnet18 .pth (not ported: raises)")
+    p.add_argument("--resume_posenet", type=str, default="")
+    p.add_argument("--resume_refinenet", type=str, default="")
+    p.add_argument("--start_epoch", type=int, default=1)
+    p.add_argument("--outf", type=str, default="trained_models")
+    p.add_argument("--log_dir", type=str, default="experiments/logs")
+    p.add_argument("--synthetic", action="store_true",
+                   help="train on generated frames")
+    p.add_argument("--synthetic_frames", type=int, default=4,
+                   help="synthetic train-set size in frames (2 samples each)")
+    p.add_argument("--batched", action="store_true",
+                   help="one optimizer step per batch (mean gradient, batch "
+                        "BN) instead of per-sample accumulation")
+    p.add_argument("--fused", action="store_true",
+                   help="accumulation windows on a shared canvas: per-sample "
+                        "semantics (summed gradients, batch-1 BN)")
+    p.add_argument("--batched_test", action="store_true",
+                   help="batched test loop in the per-sample / --fused modes")
+    p.add_argument("--data_parallel", type=int, default=0,
+                   help="> 1 not ported (one device)")
+    p.add_argument("--model_parallel", type=int, default=0,
+                   help="> 1 not ported (one device)")
+    p.add_argument("--sym_slots", type=int, default=0,
+                   help="accepted, a no-op in the port")
+    p.add_argument("--cache_mb", type=int, default=0,
+                   help="decoded-frame cache (not ported: raises)")
+    p.add_argument("--num_points", type=int, default=None,
+                   help="override the preset's sampled-cloud size")
+    p.add_argument("--mesh_points", type=int, default=None,
+                   help="override the preset's model-mesh point count")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--cpu", action="store_true",
+                   help="run on the CPU (default: the CUDA card)")
+    return p.parse_args(argv)
+
+
+def refuse_unsupported(args) -> None:
+    """NotImplementedError for every flag the port does not run."""
+    refused = [
+        (args.config, "--config (YAML) needs config_io.py, which needs "
+                      "PyYAML: ROADMAP A8"),
+        (args.dataset_root or not args.synthetic,
+         "real datasets (--dataset_root; run with --synthetic): ROADMAP A3 "
+         "(linemod.py, ycb.py)"),
+        (args.workers > 0, "--workers > 0 (the threaded data plane): "
+                           "ROADMAP A3"),
+        (args.data_parallel > 1 or args.model_parallel > 1,
+         "--data_parallel / --model_parallel > 1 (the mesh): ROADMAP A7"),
+        (args.pretrained_trunk, "--pretrained_trunk (torch_import.py): "
+                                "ROADMAP A8"),
+        (args.cache_mb, "--cache_mb (frame_cache.py): ROADMAP A3"),
+    ]
+    for bad, what in refused:
+        if bad:
+            raise NotImplementedError(f"not ported: {what}")
+    if args.batched and args.fused:
+        raise SystemExit("--fused is the exact-semantics mode; --batched is "
+                         "the mean-gradient deviation: pick one")
+
+
+def build_config(args):
+    from plr2_tpu_torch.config import TrainConfig, get_preset
+    cfg = get_preset("linemod_train" if args.dataset == "linemod"
+                     else "ycb_train")
+    cfg = dataclasses.replace(cfg, train=TrainConfig(
+        batch_size=args.batch_size, lr=args.lr, lr_rate=args.lr_rate,
+        w=args.w, w_rate=args.w_rate, decay_margin=args.decay_margin,
+        refine_margin=args.refine_margin, refine_iterations=args.iteration,
+        nepoch=args.nepoch, repeat_epoch=args.repeat_epoch, seed=args.seed,
+        checkpoint_dir=args.outf, log_dir=args.log_dir,
+        resume_posenet=args.resume_posenet,
+        resume_refinenet=args.resume_refinenet,
+        start_epoch=args.start_epoch, workers=args.workers,
+        sym_slots=args.sym_slots, fused_accum=args.fused,
+        batched_test=args.batched_test))
+    if args.num_points or args.mesh_points:
+        cfg = dataclasses.replace(
+            cfg,
+            model=dataclasses.replace(
+                cfg.model, num_points=args.num_points or cfg.model.num_points),
+            dataset=dataclasses.replace(
+                cfg.dataset,
+                num_points=args.num_points or cfg.dataset.num_points,
+                num_mesh_points=(args.mesh_points
+                                 or cfg.dataset.num_mesh_points)))
+    return cfg
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    refuse_unsupported(args)
+    from plr2_tpu_torch.data import SyntheticPoseDataset
+    from plr2_tpu_torch.train import (BatchTrainer, CheckpointManager,
+                                      FusedTrainer, Trainer)
+    from plr2_tpu_torch.utils import GracefulInterrupt, setup_logger
+
+    cfg = build_config(args)
+    n_pts, mesh = cfg.model.num_points, cfg.dataset.num_mesh_points
+    train_ds = SyntheticPoseDataset(num_frames=args.synthetic_frames,
+                                    num_objects=2, model_points=mesh,
+                                    num_points=n_pts, seed=args.seed)
+    test_ds = SyntheticPoseDataset(num_frames=max(2, args.synthetic_frames // 8),
+                                   num_objects=2, model_points=mesh,
+                                   num_points=n_pts, seed=args.seed + 1)
+    logger = setup_logger(
+        "train", os.path.join(args.log_dir, f"train_{args.dataset}.log"))
+    kind = (BatchTrainer if args.batched
+            else FusedTrainer if cfg.train.fused_accum else Trainer)
+    # the first SIGTERM / SIGINT latches from here on; fit stops at the
+    # next sample boundary and saves `last` (auto-resume replays the epoch)
+    with GracefulInterrupt() as stop:
+        trainer = kind(cfg, device="cpu" if args.cpu else "cuda")
+        state = trainer.init_state()
+        ckpt = CheckpointManager(os.path.join(args.outf, args.dataset))
+        if args.resume_posenet or args.resume_refinenet:
+            state = ckpt.restore_into(state, tag=args.resume_posenet or "best")
+            logger.info(f"resumed from epoch {state.epoch} "
+                        f"(best_test={state.best_test:.5f})")
+        elif ckpt.restore("last") is not None:
+            state = ckpt.restore_into(state, tag="last")
+            logger.info(f"auto-resumed from last checkpoint (epoch {state.epoch})")
+        logger.info(f"training {args.dataset} ({kind.__name__}, "
+                    f"{trainer.device}): {len(train_ds)} train / "
+                    f"{len(test_ds)} test samples")
+        trainer.fit(state, train_ds, test_ds, epochs=args.nepoch,
+                    log_fn=logger.info,
+                    checkpoint_fn=lambda s, d: ckpt.save(s, d),
+                    save_last_fn=lambda s: ckpt.save(s, s.best_test, tag="last"),
+                    stop_fn=stop)
+    return state
+
+
+if __name__ == "__main__":
+    main()

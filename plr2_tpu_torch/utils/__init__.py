@@ -1,0 +1,4 @@
+from plr2_tpu_torch.utils.interrupt import GracefulInterrupt
+from plr2_tpu_torch.utils.logger import setup_logger
+
+__all__ = ["GracefulInterrupt", "setup_logger"]
