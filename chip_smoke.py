@@ -75,8 +75,8 @@ non-zero, and there is no CPU fallback:
    kernel of that path against its plain version at each crop's shapes.
 12. fused: one FusedTrainer epoch (window 8, f32) with its launch counts;
    a window on its shared canvas against 8 per-sample steps of the same
-   samples (losses and gradients 1e-5 relative L2; the loop against itself
-   is printed beside it: atomic adds on the card reorder sums).
+   samples (losses and gradients 1e-5 relative L2), and the per-sample
+   loop against itself (bit-equal).
 13. mixed: BatchTrainer in bf16 mixed precision, batch 32, stage 1, 3
    steps: launch counts, bf16 operands at both kernels, f32 parameters, BN
    statistics and Adam state; the same steps through the plain versions
@@ -86,6 +86,29 @@ non-zero, and there is no CPU fallback:
    ms per step and samples/s at batch 32, and the
    wall time of `python -m plr2_tpu_torch.tools.train --synthetic --nepoch
    2` on the card.
+15. determinism (after train entry timing): one stage-1 step at batch 32
+   under torch.use_deterministic_algorithms(True, warn_only=True) (the ops
+   it names must be none; the switch is off again after it), the same
+   switch on the ops that the step ran before (for the record), the step's
+   kernels that scatter or index (printed); the gather's backward
+   kernel against its plain version, bit for bit, on the step's indices and
+   on repeated ones, f32 and bf16, and its time beside index_add_ and its
+   bound; two runs each of a per-sample window at its own crops, a fused
+   window and a mixed bf16 step from one state: gradients, parameters, BN
+   buffers and losses bit-equal; the stage-1 step's ms with cuDNN
+   restricted to deterministic algorithms and without.
+16. eval (run right after main path): `evaluate` per-crop and batched
+   (batch 16, canvas 240), f32 and bf16, at YCB width (21 objects, 1000
+   points, 500 mesh points, 2 refine iterations, seeded weights) on 8
+   held-out frames of the 21-object library (32 samples): launch counts
+   per run, kernels vs plain versions
+   on every sample's distance (a tolerance derived from the estimate gate;
+   no hypothesis may flip in f32) and on each EvalResult field; samples/s.
+17. eval entry: `python -m plr2_tpu_torch.tools.train --synthetic --nepoch
+   1`, then `tools.eval_linemod --synthetic --model ... --refine_iterations
+   4 --save_distances ...`, then `tools.plot_accuracy --distances ...
+   --json ...` as processes (wall times), and the table against the same
+   evaluation run in this process.
 
 The second-to-last line is a JSON object with one entry per kernel and
 dtype; the last line is {"ok": true, "device": {...}}.
@@ -182,16 +205,29 @@ MIXED_BATCH, MIXED_STEPS = 32, 3
 # f32 noise into a step of either sign)
 EPOCH_TOL = {"loss": 1e-4, "param_l2": 1e-3}
 # a fused window vs the same samples' per-sample steps: losses and each
-# gradient tensor in relative L2. One computation, but the backward passes
-# of the embedding gather and the PSP resize add by atomics on the card, so
-# two runs of the same loop differ too (measured on an H100 80GB HBM3 at
-# 700 W: up to 4.1e-6 between window and loop; the phase prints the
-# loop-against-itself gap beside it)
+# gradient tensor in relative L2. One computation on other tensors: the
+# window's samples are slices of a stacked canvas, so the library may pick
+# other kernels and sum in another order (measured on an H100 80GB HBM3 at
+# 700 W: up to 4.1e-6). The same loop run twice must be bit-equal: the
+# train step is deterministic (the choose gather's fixed-order backward,
+# the PSP pooling and resize as products, cuDNN restricted to
+# deterministic algorithms)
 FUSED_TOL = 1e-5
 # mixed precision: bf16 kernels vs their plain versions on one loss
 # (bf16 activations), and bf16 compute vs the f32 trajectory
 # (tests/test_train_eval.py:366-368)
 MIXED_TOL = {"kernel_vs_plain": 2e-2, "vs_f32": 0.05}
+# two runs of this script before the train step was made deterministic,
+# on an H100 80GB HBM3 at 700 W, printed beside this run's: the stage-1
+# step at batch 32 (ms), the fused window of 8 (ms), the mixed bf16 step at
+# batch 32 (ms)
+BEFORE_MS = {"stage1": (138.307, 140.376), "fused_window": (405.355, 292.313),
+           "mixed": (102.586, 97.117)}
+
+# eval at YCB width on held-out frames of the 21-object library: 8 frames
+# of 4 objects (32 samples), per-crop (batch 1 at each crop) and batched
+# (batch 16 on a canvas of max(240, largest crop)), f32 and bf16
+EVAL_FRAMES, EVAL_BATCH, EVAL_CANVAS = 8, 16, 240
 
 DEVICE = "cuda"
 
@@ -203,7 +239,11 @@ KNN_SOURCES = {"nn_match": "plr2_tpu/ops/pallas_knn.py:121",
                "nn_argmin": "plr2_tpu/ops/pallas_knn.py:66",
                "nn_match_mxu": "plr2_tpu/ops/pallas_knn.py:197"}
 QUANT_SOURCE = ("plr2_tpu_torch/csrc/quant.cu", "plr2_tpu/ops/pallas_quant.py:117")
-KERNEL_NAMES = (*SOURCES, *KNN_SOURCES, "quantized_mlp_head")
+# the choose gather's deterministic backward: a repair kernel, not the port
+# of a pallas_call (JAX's backward is an XLA one-hot product, gather.py:34)
+GATHER_SOURCE = ("plr2_tpu_torch/csrc/gather.cu", "plr2_tpu/ops/gather.py:34")
+KERNEL_NAMES = (*SOURCES, *KNN_SOURCES, "quantized_mlp_head",
+                "gather_rows_backward")
 # the bf16 tensor-core kernels, by a substring of their SASS function names
 TC_KERNELS = {"mlp_head": "mlp_head_wgmma_kernel",
               "upconv3x3_prelu": "upconv_wgmma_kernel"}
@@ -695,7 +735,8 @@ def train_phase():
           f"against {MESH_POINTS} targets")
     launches, result = {}, {}
     for stage, iters, expect in (
-            ("train_stage1", 0, counts(mlp_head=3, upconv3x3_prelu=3, nn_match=1)),
+            ("train_stage1", 0, counts(mlp_head=3, upconv3x3_prelu=3, nn_match=1,
+                                       gather_rows_backward=1)),
             ("train_refine", ITERS, counts(mlp_head=3, upconv3x3_prelu=3,
                                            nn_match=ITERS))):
         mod_k, mod_p = ((kern.refiner, plain.refiner) if iters
@@ -823,6 +864,11 @@ def main_path_phase():
         if not ok:
             raise AssertionError(f"estimate {dt_name}: kernel pipeline "
                                  "disagrees with the plain-version pipeline")
+        # the host-bound batch-8 estimate while the process is fresh (the
+        # timing phase measures it again after the training phases)
+        ms = time_ms(lambda: kern.estimate(*inputs, refine_iterations=ITERS), 10)
+        print(f"  estimate {dt_name} batch {BATCH}, fresh process: {ms:.3f} ms "
+              f"= {BATCH * 1e3 / ms:.1f} frames/s")
     del plain
     torch.cuda.empty_cache()
     return kern, launches
@@ -874,8 +920,8 @@ def timing_phase(kern, launches, errs):
 
     entries = []
     for dt_name in ("f32", "bf16"):
-        paths = (("f32", "train_stage1", "train_refine", "trainer", "fused")
-                 if dt_name == "f32" else ("bf16", "mixed"))
+        paths = (("f32", "train_stage1", "train_refine", "trainer", "fused",
+                  "eval_f32") if dt_name == "f32" else ("bf16", "mixed", "eval_bf16"))
         for kname, t in tables[(dt_name, BATCH)].items():
             by_path = {PATH_NAMES.get(pth, pth): launches[pth][kname]
                        for pth in paths}
@@ -1025,7 +1071,9 @@ def train_timing_phase(kern, batch, result, launches, errs):
         times[f"{stage}_ms"] = ms
         times[f"{stage}_samples_per_s"] = TRAIN_BATCH * 1e3 / ms
         print(f"  {stage} step f32 batch {TRAIN_BATCH}: {ms:.3f} ms = "
-              f"{TRAIN_BATCH * 1e3 / ms:.1f} samples/s")
+              f"{TRAIN_BATCH * 1e3 / ms:.1f} samples/s"
+              + (f" (before the determinism repair: {BEFORE_MS['stage1']} ms)"
+                 if stage == "stage1" else ""))
     times["profile_wall_ms"], times["profile_device_ms"] = profile_step(
         result["train_stage1"]["step"], batch)
 
@@ -1225,10 +1273,13 @@ def trainer_phase(errs):
             print(f"  {line}")
         # per sample: one PoseNet forward (3 + 3 launches); the ADD-S match
         # once a symmetric sample in stage 1 and in its test epoch, and
-        # once an iteration in the refine stage and in its test epoch
+        # once an iteration in the refine stage and in its test epoch; the
+        # gather's backward once a sample of the stage-1 epoch (the refine
+        # stage runs PoseNet without gradients)
         fwd = 3 * 2 * (n_tr + n_te)
         expect = counts(mlp_head=fwd, upconv3x3_prelu=fwd,
-                        nn_match=(s_tr + s_te) * (1 + ITERS))
+                        nn_match=(s_tr + s_te) * (1 + ITERS),
+                        gather_rows_backward=n_tr)
         print(f"  launches in Trainer.fit (2 epochs, {fit_s:.2f} s): {seen}")
         if seen != expect:
             raise AssertionError(f"trainer: expected launches {expect}, got {seen}")
@@ -1341,7 +1392,8 @@ def fused_phase(train_ds, errs):
     seen = launch_counts()
     print(f"  launches in one FusedTrainer epoch ({n} samples, window {WINDOW}, "
           f"{info['seconds']:.2f} s): {seen}")
-    expect = counts(mlp_head=3 * n, upconv3x3_prelu=3 * n, nn_match=s_n)
+    expect = counts(mlp_head=3 * n, upconv3x3_prelu=3 * n, nn_match=s_n,
+                    gather_rows_backward=n)
     if seen != expect:
         raise AssertionError(f"fused: expected launches {expect}, got {seen}")
     samples = list(ftr._sample_iter(train_ds, torch.Generator().manual_seed(7),
@@ -1367,31 +1419,28 @@ def fused_phase(train_ds, errs):
         return max((float((a[k] - b[k]).norm() / b[k].norm().clamp(min=1e-30)), k)
                    for k in b)
 
-    saved = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
-    try:
-        fused_losses, _ = make_fused_window_grads(ftr.pipe, SYM_LIST, W)(
-            win, torch.Generator().manual_seed(9))
-        torch.cuda.synchronize()
-        g_fused = {k: p.grad.clone() for k, p in net.named_parameters()}
-        g_loop, loop_losses = loop_grads()
-        g_again, _ = loop_grads()
-    finally:
-        torch.backends.cudnn.deterministic = saved
+    fused_losses, _ = make_fused_window_grads(ftr.pipe, SYM_LIST, W)(
+        win, torch.Generator().manual_seed(9))
+    torch.cuda.synchronize()
+    g_fused = {k: p.grad.clone() for k, p in net.named_parameters()}
+    g_loop, loop_losses = loop_grads()
+    g_again, again_losses = loop_grads()
     net.zero_grad(set_to_none=True)
     rel, worst_name = rel_l2(g_fused, g_loop)
-    floor, floor_name = rel_l2(g_again, g_loop)
     equal = sum(torch.equal(g_fused[k], g_loop[k]) for k in g_loop)
+    again = sum(torch.equal(g_again[k], g_loop[k]) for k in g_loop)
     dl = float((fused_losses - loop_losses).abs().max() / loop_losses.abs().max())
-    ok = rel <= FUSED_TOL and dl <= FUSED_TOL
+    ok = (rel <= FUSED_TOL and dl <= FUSED_TOL and again == len(g_loop)
+          and torch.equal(again_losses, loop_losses))
     print(f"  window of {WINDOW} on a {win['img'].shape[1]} px canvas vs {WINDOW} "
           f"per-sample steps: losses max rel {dl:.2e}; gradients max rel L2 "
           f"{rel:.2e} ({worst_name}), {equal}/{len(g_loop)} tensors bit-equal "
-          f"(tol {FUSED_TOL:g}); the same per-sample loop run twice differs by "
-          f"{floor:.2e} ({floor_name}): the card's atomic adds (the gather's "
-          f"and the resize's backward) reorder sums {'ok' if ok else 'FAIL'}")
+          f"(tol {FUSED_TOL:g}); the same per-sample loop run twice: "
+          f"{again}/{len(g_loop)} gradient tensors and the losses bit-equal "
+          f"(must be all) {'ok' if ok else 'FAIL'}")
     if not ok:
-        raise AssertionError("fused window differs from the per-sample steps")
+        raise AssertionError("fused window differs from the per-sample steps, "
+                             "or the per-sample loop from itself")
     canvas = win["img"].shape[1]
     check_kernels_at([(canvas, canvas)], errs, torch.Generator().manual_seed(10),
                      match=False)
@@ -1453,7 +1502,8 @@ def mixed_phase(errs):
                   f"at batch {MIXED_BATCH}: {seen}; kernel operand dtypes "
                   f"{sorted((k, str(a), str(b)) for k, a, b in dtypes)}")
             expect = counts(mlp_head=3 * MIXED_STEPS, upconv3x3_prelu=3 * MIXED_STEPS,
-                            nn_match=batches_with_sym)
+                            nn_match=batches_with_sym,
+                            gather_rows_backward=MIXED_STEPS)
             if seen != expect:
                 raise AssertionError(f"mixed: expected launches {expect}, got {seen}")
             if {(a, b) for _, a, b in dtypes} != {(torch.bfloat16, torch.bfloat16)}:
@@ -1543,8 +1593,9 @@ def entry_timing_phase(trainer_out, fused_out, mixed_out):
     out["fused_window_ms"] = ms
     out["fused_epoch_ms_per_window"] = fused_out["epoch_s"] * 1e3 / (len(ds) // WINDOW)
     print(f"  FusedTrainer window of {WINDOW} f32 on a {win['img'].shape[1]} px "
-          f"canvas: {ms:.3f} ms per window ({WINDOW * 1e3 / ms:.1f} samples/s); "
-          f"its epoch {out['fused_epoch_ms_per_window']:.3f} ms per window with "
+          f"canvas: {ms:.3f} ms per window ({WINDOW * 1e3 / ms:.1f} samples/s; "
+          f"before the determinism repair: {BEFORE_MS['fused_window']} ms); its epoch "
+          f"{out['fused_epoch_ms_per_window']:.3f} ms per window with "
           "the data path (first epoch)")
     btr, state = mixed_out["btr"], mixed_out["state"]
     samples = list(btr._sample_iter(mixed_out["ds"], torch.Generator().manual_seed(13),
@@ -1554,7 +1605,8 @@ def entry_timing_phase(trainer_out, fused_out, mixed_out):
     ms = step_ms(mstep, batch, 5)
     out["mixed_ms"], out["mixed_samples_per_s"] = ms, MIXED_BATCH * 1e3 / ms
     print(f"  mixed bf16 stage-1 step batch {MIXED_BATCH} ({batch['img'].shape[1]} px "
-          f"canvas): {ms:.3f} ms = {MIXED_BATCH * 1e3 / ms:.1f} samples/s")
+          f"canvas): {ms:.3f} ms = {MIXED_BATCH * 1e3 / ms:.1f} samples/s "
+          f"(before the determinism repair: {BEFORE_MS['mixed']} ms)")
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         res = subprocess.run(
@@ -1855,6 +1907,460 @@ def quant_timing_phase(pipe, heads, qheads, seen, max_err):
     return entry
 
 
+
+# ---------------- determinism of the train step (the gather's fixed-order
+# backward, the PSP pooling and resize as products, cuDNN restricted to
+# deterministic algorithms inside the step) ----------------
+
+
+def twice(net, one_run):
+    """`one_run()` (gradients into `net`'s .grad; returns the losses) twice
+    from one state of `net`, each run followed by an Adam step from fresh
+    moments. Returns the names of what differs between the two runs
+    (gradients, parameters and BN buffers after the step, losses), the
+    count of tensors compared and the largest relative L2 gap of a
+    gradient."""
+    from plr2_tpu_torch.parallel.data_parallel import adam
+    state0 = {k: v.clone() for k, v in net.state_dict().items()}
+    runs = []
+    for _ in range(2):
+        net.load_state_dict(state0)
+        net.zero_grad(set_to_none=True)
+        opt = adam(net, LR)
+        losses = one_run()
+        grads = {k: p.grad.clone() for k, p in net.named_parameters()
+                 if p.grad is not None}
+        opt.step()
+        torch.cuda.synchronize()
+        runs.append((losses, grads, {k: v.clone() for k, v in net.state_dict().items()}))
+    net.load_state_dict(state0)
+    net.zero_grad(set_to_none=True)
+    (l1, g1, s1), (l2, g2, s2) = runs
+    diff = ([f"grad {k}" for k in g1 if not torch.equal(g1[k], g2[k])]
+            + [f"state {k}" for k in s1 if not torch.equal(s1[k], s2[k])]
+            + ([] if torch.equal(l1, l2) else ["losses"]))
+    gap = max(float((g1[k] - g2[k]).norm() / g2[k].norm().clamp(min=1e-30))
+              for k in g1)
+    return diff, len(g1) + len(s1), gap
+
+
+def deterministic_warnings(fn):
+    """The warnings of `fn()` under torch.use_deterministic_algorithms(True,
+    warn_only=True): each names an op with no deterministic CUDA
+    implementation. The switch is off again on return."""
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            fn()
+            torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
+    return sorted({str(w.message).split("\n")[0][:150] for w in caught})
+
+
+# kernel names that scatter, index or add by atomics (a step's profile is
+# searched for them and they are printed)
+SCATTER_WORDS = ("atomic", "scatter", "index_add", "indexing_backward",
+                 "index_put", "upsample", "adaptive", "embedding_backward")
+
+
+@phase("determinism")
+def determinism_phase(tkern, batch, trainer_out, fused_out, mixed_out, launches):
+    """The diagnostic (one stage-1 step under torch's determinism switch:
+    the ops it names; the step's kernels that scatter), the gather's
+    backward kernel against its plain version, bit for bit, then two runs
+    each of a per-sample window, a fused window and a mixed bf16 step,
+    which must be bit-equal; the step ms with cuDNN's deterministic
+    restriction on and off."""
+    import contextlib
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from plr2_tpu_torch.ops import gather
+    from plr2_tpu_torch.parallel import data_parallel as dp
+    from plr2_tpu_torch.train.trainer import sample_batch
+    net = tkern.posenet
+    state0 = {k: v.clone() for k, v in net.state_dict().items()}
+    step = dp.TrainStep(tkern, SYM_LIST, W)
+
+    def one_step():
+        step.accumulate(batch, torch.Generator(device=DEVICE).manual_seed(3))
+
+    named = deterministic_warnings(one_step)
+    print(f"  diagnostic, one stage-1 step (batch {TRAIN_BATCH}) under "
+          f"torch.use_deterministic_algorithms(True, warn_only=True): "
+          f"{len(named)} ops named {named}")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        one_step()
+        torch.cuda.synchronize()
+    net.load_state_dict(state0)
+    net.zero_grad(set_to_none=True)
+    kernels = {e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+    scatter = sorted(k[:120] for k in kernels
+                     if any(w in k.lower() for w in SCATTER_WORDS))
+    # what is left writes each address once: torch.gather's forward and
+    # its scatter_add backward in PoseNet's selection of the query object's
+    # rows (one value a destination), and the sorted-segment backward of
+    # the loss's row indexing (indexing_backward_kernel); the repeat runs
+    # below hold the step to bit-equality
+    print(f"  the step's {len(kernels)} distinct CUDA kernels; those that "
+          f"scatter or index: {scatter or 'none'} (each address written once "
+          "or in a fixed order: the object-row selection and the loss's row "
+          "indexing)")
+
+    # for the record: the ops that the step ran before this repair, at
+    # their shapes in this step, name themselves under the switch
+    def replaced():
+        x = torch.randn((TRAIN_BATCH, 512, 20, 20), device=DEVICE,
+                        requires_grad=True)
+        y = sum(F.interpolate(F.adaptive_avg_pool2d(x, s), (20, 20),
+                              mode="bilinear", align_corners=False)
+                for s in (1, 2, 3, 6))
+        p = torch.randn((TRAIN_BATCH, CROP * CROP, 64), device=DEVICE,
+                        requires_grad=True)
+        g = torch.gather(p, 1, batch["choose"][..., None].expand(-1, -1, 64))
+        (y.sum() + g.sum()).backward()
+    print(f"  the same switch on the replaced ops (AdaptiveAvgPool2d, bilinear "
+          f"F.interpolate, torch.gather) at this step's shapes names "
+          f"{deterministic_warnings(replaced)} (an op that has a deterministic "
+          f"kernel takes it under the switch without a word; without the switch "
+          f"these backward passes add by atomics)")
+    if named:
+        raise AssertionError(f"determinism: the step runs ops without a "
+                             f"deterministic path: {named}")
+
+    # the gather's backward kernel against its plain version on CPU copies
+    # (index_add_ on the CPU adds in ascending n, the kernel's order), on
+    # the step's own indices and on indices that repeat half of each row
+    idx = batch["choose"]
+    hw = CROP * CROP
+    rep = idx.clone()
+    rep[:, NUM_POINTS // 2:] = rep[:, :NUM_POINTS - NUM_POINTS // 2]
+    gen = torch.Generator().manual_seed(17)
+    err = 0.0
+    for dt in (torch.float32, torch.bfloat16):
+        ct = torch.randn((TRAIN_BATCH, NUM_POINTS, 64), generator=gen).to(dt)
+        for which, ind in (("step", idx), ("repeated", rep)):
+            got = gather.gather_rows_backward(ct.to(DEVICE), ind, hw)
+            torch.cuda.synchronize()
+            ref = gather.gather_rows_backward_plain(ct, ind.cpu(), hw)
+            err = max(err, float((got.cpu().float() - ref.float()).abs().max()))
+            if not torch.equal(got.cpu(), ref):
+                raise AssertionError(f"gather_rows_backward {dt} ({which} "
+                                     "indices) differs from its plain version")
+    print(f"  gather_rows_backward at {(TRAIN_BATCH, NUM_POINTS, 64)} -> "
+          f"{(TRAIN_BATCH, hw, 64)}, f32 and bf16, the step's indices and "
+          "half-repeated ones: bit-equal to the plain version ok")
+    ct = torch.randn((TRAIN_BATCH, NUM_POINTS, 64), generator=gen).to(DEVICE)
+    k_ms = time_ms(lambda: gather.gather_rows_backward(ct, idx, hw), 20)
+    p_ms = time_ms(lambda: gather.gather_rows_backward_plain(ct, idx, hw), 20)
+    rows = (idx + torch.arange(TRAIN_BATCH, device=DEVICE)[:, None] * hw).reshape(-1)
+    flat = ct.reshape(-1, 64)
+    lib_ms = time_ms(lambda: torch.zeros((TRAIN_BATCH * hw, 64), device=DEVICE)
+                     .index_add_(0, rows, flat), 20)
+    bound = gather.bytes_moved(TRAIN_BATCH, NUM_POINTS, hw, 64, 4) / HBM_BYTES_PER_S * 1e3
+    by_path = {pth: launches[pth]["gather_rows_backward"] for pth in (
+        "train_stage1", "train_refine", "trainer", "fused", "mixed")}
+    print(f"  gather_rows_backward f32 (stable sort + the segment kernel, dy "
+          f"zeroed): {k_ms:.4f} ms, plain (index_add_ by atomics) {p_ms:.4f} "
+          f"ms, library index_add_ {lib_ms:.4f} ms, bound {bound:.4f} ms "
+          f"(bytes); launches {by_path}")
+    entry = {"name": "gather_rows_backward", "route": "cuda",
+             "source": GATHER_SOURCE[0], "replaces": GATHER_SOURCE[1],
+             "launches": sum(by_path.values()), "launches_by_path": by_path,
+             "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+             "bound_ms": bound, "bound_by": "bytes", "library_ms": lib_ms,
+             "note": "a repair kernel (deterministic backward of the choose "
+                     "gather), not the port of a pallas_call"}
+
+    # two runs each, from one state: bit-equal or fail
+    ds = trainer_out["train_ds"]
+    pipe = trainer_out["stage1"].pipe
+    from plr2_tpu_torch.train import Trainer
+    tr = Trainer(train_config(), pipe=pipe)
+    samples = list(tr._sample_iter(ds, torch.Generator().manual_seed(15),
+                                   add_noise=True, shuffle=False, seed=0))[:WINDOW]
+
+    def per_sample():
+        st = dp.TrainStep(pipe, SYM_LIST, W)
+        gen = torch.Generator().manual_seed(9)
+        return torch.stack([st.accumulate(sample_batch(s), gen)[0] for s in samples])
+
+    from plr2_tpu_torch.train import make_fused_window_grads
+    ftr, win = fused_out["ftr"], fused_out["win"]
+    window = make_fused_window_grads(ftr.pipe, SYM_LIST, W)
+
+    def fused():
+        return window(win, torch.Generator().manual_seed(9))[0]
+
+    btr = mixed_out["btr"]
+    msamples = list(btr._sample_iter(mixed_out["ds"], torch.Generator().manual_seed(13),
+                                     add_noise=True, shuffle=False, seed=0))
+    mbatch = btr._stack_eval(msamples[:MIXED_BATCH])
+    mstep = dp.TrainStep(btr.pipe, SYM_LIST, W)
+
+    def mixed():
+        return mstep.accumulate(mbatch, torch.Generator().manual_seed(9))[0]
+
+    crops = sorted({tuple(s.img.shape[:2]) for s in samples})
+    for what, netw, fn in (
+            (f"per-sample window of {WINDOW} (f32, crops {crops})", pipe.posenet, per_sample),
+            (f"fused window of {WINDOW} (f32, {win['img'].shape[1]} px canvas)",
+             ftr.pipe.posenet, fused),
+            (f"mixed bf16 step, batch {MIXED_BATCH} ({mbatch['img'].shape[1]} px canvas)",
+             btr.pipe.posenet, mixed)):
+        diff, n, _ = twice(netw, fn)
+        print(f"  {what}, run twice from one state: {n - len(diff)}/{n} "
+              f"gradient, parameter and BN tensors bit-equal, losses "
+              f"{'equal' if 'losses' not in diff else 'DIFFER'} "
+              f"{'ok' if not diff else 'FAIL ' + str(diff[:5])}")
+        if diff:
+            raise AssertionError(f"determinism: two runs of the {what} differ")
+
+    # what cuDNN's deterministic restriction does: two runs of the stage-1
+    # step at batch 32 with it (bit-equal or fail) and without it (for the
+    # record), then the step's ms with it and without it, in turns
+    def step32():
+        return dp.TrainStep(tkern, SYM_LIST, W).accumulate(
+            batch, torch.Generator(device=DEVICE).manual_seed(3))[0][None]
+    orig = dp.deterministic_convs
+    dp.deterministic_convs = contextlib.nullcontext
+    try:
+        loose, n, loose_gap = twice(net, step32)
+    finally:
+        dp.deterministic_convs = orig
+    strict, _, _ = twice(net, step32)
+    print(f"  stage-1 step batch {TRAIN_BATCH} run twice from one state: with "
+          f"cuDNN restricted to deterministic algorithms {n - len(strict)}/{n} "
+          f"tensors bit-equal; without the restriction {n - len(loose)}/{n} "
+          f"(gradients up to {loose_gap:.2e} relative L2 apart) "
+          f"{'ok' if not strict else 'FAIL'}")
+    if strict:
+        raise AssertionError(f"determinism: two runs of the stage-1 step differ: "
+                             f"{strict[:5]}")
+    cost = {"on": [], "off": []}
+    step1 = dp.make_train_step(tkern, SYM_LIST, W, LR)
+    for label in ("on", "off", "off", "on"):
+        orig = dp.deterministic_convs
+        if label == "off":
+            dp.deterministic_convs = contextlib.nullcontext
+        try:
+            cost[label].append(step_ms(step1, batch, 5))
+        finally:
+            dp.deterministic_convs = orig
+    net.load_state_dict(state0)
+    on, off = sum(cost["on"]) / 2, sum(cost["off"]) / 2
+    print(f"  stage-1 step f32 batch {TRAIN_BATCH}: {cost['on']} ms with cuDNN "
+          f"restricted to deterministic algorithms (the port's step), "
+          f"{cost['off']} ms without: the restriction costs {on - off:.3f} ms "
+          f"({100 * (on - off) / off:.1f}%); before the determinism repair "
+          f"{BEFORE_MS['stage1']} ms")
+    return entry, {"det_on_ms": on, "det_off_ms": off, "gather_ms": k_ms}
+
+
+# ---------------- evaluation (ADD / ADD-S, the VOCap AUC) ----------------
+
+
+def recording(pipe):
+    """Record each PoseNet call's per-point confidences (B, N) of `pipe`:
+    which hypothesis each sample's estimate picks."""
+    seen = []
+    run = pipe.run_posenet
+
+    def recorded(*a, **k):
+        out = run(*a, **k)
+        seen.append(out[2][..., 0].float())
+        return out
+    pipe.run_posenet = recorded
+    return seen
+
+
+def sample_order(res, objs):
+    """An EvalResult's distances in sample order (objects in `objs`)."""
+    pos = {o: 0 for o in res.per_object_distances}
+    out = []
+    for o in objs:
+        out.append(res.per_object_distances[o][pos[o]])
+        pos[o] += 1
+    return out
+
+
+def rate_gap(dists, threshold, tol):
+    """The share of samples within `tol` of `threshold`: how far a rate
+    may move when each distance moves by at most `tol`."""
+    return sum(abs(d - threshold) <= tol for d in dists) / max(len(dists), 1)
+
+
+@phase("eval")
+def eval_phase():
+    """`evaluate` per-crop and batched, f32 and bf16, at YCB width on
+    held-out library frames: launch counts per run, kernels vs plain
+    versions on every sample's distance and on each EvalResult field, and
+    samples/s (host clock around a synchronised evaluate, data path
+    included, after a first run that warms each crop shape)."""
+    import numpy as np
+    from plr2_tpu_torch import DenseFusionPipeline
+    from plr2_tpu_torch.eval import evaluate
+    from plr2_tpu_torch.ops import launch_counts, reset_launch_counts
+    ds = scene_dataset(EVAL_FRAMES, 3)
+    n = len(ds)
+    objs = [ds.items[i]["obj"] - 1 for i in range(n)]
+    crops = crop_shapes(ds)
+    radius = max(float(np.sqrt((m.astype(np.float64) ** 2).sum(1)).max())
+                 for m in ds.models.values())
+    # a pose within the estimate gate e (every |dq|, |dt| <= e) moves a
+    # distance by at most |dt| + ||dR|| r <= e (sqrt(3) + 4 sqrt(2) r) for
+    # points within r of the origin (||R(q) - R(p)|| <= 2 sqrt(2) |q - p|)
+    dis_tol = {d: POSE_TOL[d] * (3 ** 0.5 + 4 * 2 ** 0.5 * radius) for d in POSE_TOL}
+    print(f"  {n} samples ({sum(o in SYM_LIST for o in objs)} symmetric), crops "
+          f"{sorted(set(crops))}; distance tolerance kernels vs plain "
+          f"{ {d: round(v, 6) for d, v in dis_tol.items()} } m (POSE_TOL x "
+          f"(sqrt 3 + 4 sqrt 2 x {radius:.4f} m))")
+    kern = DenseFusionPipeline(NUM_POINTS, NUM_OBJ, device=DEVICE, seed=0)
+    plain = DenseFusionPipeline(NUM_POINTS, NUM_OBJ, use_kernels=False,
+                                device=DEVICE, seed=0)
+    rates, launches = {}, {}
+    kw = dict(sym_list=SYM_LIST, refine_iterations=ITERS,
+              diameters=ds.diameters, crop_canvas=EVAL_CANVAS, seed=4)
+    for dt_name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        if dtype != torch.float32:
+            kern.cast(dtype)
+            plain.cast(dtype)
+        total = counts()
+        for mode, bs in (("per_crop", 1), ("batched", EVAL_BATCH)):
+            fwd = n if bs == 1 else -(-n // bs)
+            conf_k = recording(kern)
+            reset_launch_counts()
+            res_k = evaluate(kern, ds, batch_size=bs, **kw)
+            torch.cuda.synchronize()
+            seen = launch_counts()
+            del kern.run_posenet
+            if seen != counts(mlp_head=3 * fwd, upconv3x3_prelu=3 * fwd):
+                raise AssertionError(f"eval {mode} {dt_name}: expected {fwd} PoseNet "
+                                     f"forwards' launches, got {seen}")
+            total = {k: total[k] + seen[k] for k in total}
+            t0 = time.perf_counter()
+            again = evaluate(kern, ds, batch_size=bs, **kw)
+            torch.cuda.synchronize()
+            s = time.perf_counter() - t0
+            rates[f"{mode}_{dt_name}"] = n / s
+            conf_p = recording(plain)
+            reset_launch_counts()
+            res_p = evaluate(plain, ds, batch_size=bs, **kw)
+            del plain.run_posenet
+            if launch_counts() != counts():
+                raise AssertionError("eval: the plain pipeline launched a kernel")
+            # which hypothesis each sample picked, and the confidence gap
+            # where the two runs picked different ones
+            ck, cp = torch.cat(conf_k), torch.cat(conf_p)
+            rows = torch.arange(ck.shape[0], device=ck.device)
+            ik, ip = ck.argmax(-1), cp.argmax(-1)
+            same = (ik == ip).cpu()
+            gap = float((ck[rows, ik] - ck[rows, ip]).abs().max())
+            dk, dp_ = sample_order(res_k, objs), sample_order(res_p, objs)
+            dd = max((abs(a - b) for a, b, ok in zip(dk, dp_, same) if ok), default=0.0)
+            tol = dis_tol[dt_name]
+            flips = int((~same).sum())
+            bad = []
+            if dt_name == "f32" and flips:
+                bad.append(f"{flips} hypotheses flipped")
+            if gap > CONF_TIE[dt_name]:
+                bad.append(f"picked hypotheses {gap:.2e} apart in confidence")
+            if dd > tol:
+                bad.append(f"distance gap {dd:.3e}")
+            if (res_k.num_samples, res_k.lost_detections) != (n, 0) or \
+                    (res_p.num_samples, res_p.lost_detections) != (n, 0):
+                bad.append("sample counts")
+            if sample_order(again, objs) != dk:
+                bad.append("the timed run's distances differ from the first run's")
+            if not flips:
+                thr = [0.1 * ds.diameters[o] for o in objs]
+                near = sum(abs(d - t) <= tol for d, t in zip(dp_, thr)) / n
+                checks = {
+                    "mean_distance": (res_k.mean_distance, res_p.mean_distance, tol),
+                    "auc": (res_k.auc, res_p.auc, 1000 * tol),
+                    "under_2cm": (res_k.under_2cm, res_p.under_2cm,
+                                  rate_gap(dp_, 0.02, tol)),
+                    "mean_success": (res_k.mean_success, res_p.mean_success, near),
+                }
+                for o in res_p.per_object_auc:
+                    checks[f"auc[{o}]"] = (res_k.per_object_auc[o],
+                                           res_p.per_object_auc[o], 1000 * tol)
+                bad += [f"{k} {a} vs {b}" for k, (a, b, t) in checks.items()
+                        if abs(a - b) > t]
+            print(f"  evaluate {mode} {dt_name} ({fwd} estimates): launches {seen}; "
+                  f"{n / s:.1f} samples/s ({s:.3f} s); kernels vs plain: "
+                  f"{n - flips}/{n} same hypothesis (others within {gap:.2e}), "
+                  f"max distance gap {dd:.3e} m (tol {tol:.3e}), AUC "
+                  f"{res_k.auc:.4f} / {res_p.auc:.4f}, <2cm {res_k.under_2cm:.4f} / "
+                  f"{res_p.under_2cm:.4f}, mean distance {res_k.mean_distance:.6f} / "
+                  f"{res_p.mean_distance:.6f} m {'ok' if not bad else 'FAIL'}")
+            if bad:
+                raise AssertionError(f"eval {mode} {dt_name}: {bad}")
+        launches[f"eval_{dt_name}"] = total
+    del kern, plain
+    torch.cuda.empty_cache()
+    return launches, rates
+
+
+@phase("eval entry")
+def eval_entry_phase():
+    """The train -> eval -> report chain of CLIs on the card (wall time of
+    each process), and the report's table against the same evaluation run
+    in this process: equal."""
+    import tempfile
+    from plr2_tpu_torch.eval.report import load_distance_report
+    from plr2_tpu_torch.tools import eval_linemod
+    walls = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        model, dist, table = (str(Path(tmp) / n) for n in ("linemod", "d.json", "t.json"))
+        eval_args = ["--synthetic", "--model", model, "--refine_iterations", "4"]
+        for name, args in (
+                ("train", ["--synthetic", "--nepoch", "1", "--outf", tmp,
+                           "--log_dir", tmp]),
+                ("eval_linemod", [*eval_args, "--save_distances", dist]),
+                ("plot_accuracy", ["--distances", dist, "--json", table])):
+            t0 = time.perf_counter()
+            res = subprocess.run([sys.executable, "-m", f"plr2_tpu_torch.tools.{name}",
+                                  *args], cwd=ROOT, capture_output=True, text=True,
+                                 timeout=600)
+            walls[name] = time.perf_counter() - t0
+            if res.returncode != 0:
+                raise AssertionError(f"{name} CLI failed: {res.stderr[-3000:]}")
+            for line in (res.stdout + res.stderr).splitlines():
+                if any(w in line for w in ("epoch 1:", "mean success", "loaded",
+                                           "all ", "object")):
+                    print(f"  {name}: {line}")
+        rows = {r["object"]: r for r in json.loads(Path(table).read_text())}
+        per_obj, _ = load_distance_report(dist)
+        ref, _ = eval_linemod.run(eval_linemod.parse_args(eval_args))
+    # the distances bit for bit; the aggregates to float64 rounding (the
+    # table sums objects in sorted order, EvalResult in sample order)
+    def close(a, b):
+        return math.isclose(a, b, rel_tol=1e-12, abs_tol=1e-15)
+    bad = []
+    if per_obj != ref.per_object_distances:
+        bad.append("distances")
+    every = rows["all"]
+    if every["count"] != ref.num_samples or not all(close(a, b) for a, b in (
+            (every["auc"], ref.auc), (every["mean_distance"], ref.mean_distance),
+            (every["under_2cm"], ref.under_2cm),
+            (every["success_01d"], ref.mean_success))):
+        bad.append(f"all: {every}")
+    for obj, auc in ref.per_object_auc.items():
+        if not (close(rows[obj]["auc"], auc) and close(
+                rows[obj]["success_01d"], ref.per_object_success[obj])):
+            bad.append(f"object {obj}: {rows[obj]}")
+    print(f"  CLI walls (process start included): "
+          f"{ {k: round(v, 2) for k, v in walls.items()} } s; the table "
+          f"(AUC {every['auc']:.4f}, {every['count']} samples) equals the "
+          f"same evaluation in this process {'ok' if not bad else 'FAIL'}")
+    if bad:
+        raise AssertionError(f"eval entry: the report differs from EvalResult: {bad}")
+    return walls
+
+
 def main():
     t0 = time.perf_counter()
     import_port()
@@ -1864,6 +2370,8 @@ def main():
     knn_errs = knn_phase()
     grad_phase()
     kern, launches = main_path_phase()
+    eval_launches, eval_rates = eval_phase()
+    launches.update(eval_launches)
     tkern, batch, train_launches, train_result = train_phase()
     launches.update(train_launches)
     trainer_launches, trainer_out = trainer_phase(errs)
@@ -1872,8 +2380,11 @@ def main():
     for more in (trainer_launches, fused_launches, mixed_launches):
         launches.update(more)
     entry_times = entry_timing_phase(trainer_out, fused_out, mixed_out)
+    gather_entry, det = determinism_phase(tkern, batch, trainer_out, fused_out,
+                                          mixed_out, launches)
     del trainer_out, fused_out, mixed_out
     torch.cuda.empty_cache()
+    eval_walls = eval_entry_phase()
     frames, entries, est_profile = timing_phase(kern, launches, errs)
     kern.cast(torch.float32)
     tf32 = tf32_phase(kern)
@@ -1884,10 +2395,15 @@ def main():
     del tkern, batch, train_result
     torch.cuda.empty_cache()
     entries.append(quant_timing_phase(*quant_phase()))
-    print(f"summary: build {build_s:.2f} s, total {time.perf_counter() - t0:.2f} s, "
+    entries.append(gather_entry)
+    print(f"summary ({smi}): build {build_s:.2f} s, total "
+          f"{time.perf_counter() - t0:.2f} s, "
           f"frames/s {json.dumps({k: round(v, 1) for k, v in frames.items()})}, "
           f"train {json.dumps({k: round(v, 3) for k, v in train_times.items()})}, "
           f"train entry {json.dumps({k: round(v, 3) for k, v in entry_times.items()})}, "
+          f"determinism {json.dumps({k: round(v, 3) for k, v in det.items()})}, "
+          f"eval samples/s {json.dumps({k: round(v, 2) for k, v in eval_rates.items()})}, "
+          f"eval CLI walls s {json.dumps({k: round(v, 2) for k, v in eval_walls.items()})}, "
           f"tf32 {json.dumps({k: round(v, 6) for k, v in tf32.items()})}, "
           f"estimate profiles {json.dumps({d: {k: round(v, 3) for k, v in p.items()} for d, p in est_profile.items()})}")
     print(smi)

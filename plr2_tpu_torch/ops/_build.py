@@ -44,6 +44,7 @@ _SIGNATURES = {
     "plr2_nn_match": [_P] * 3 + [_I] * 3 + [_P],
     "plr2_nn_match_mxu": [_P] * 3 + [_I] * 3 + [_P],
     "plr2_quantized_mlp_head": [_P] * 5 + [_I, _I, _U, _I, _P, _P],
+    "plr2_gather_rows_backward": [_I] + [_P] * 4 + [_I] * 4 + [_P],
 }
 
 _lib = None

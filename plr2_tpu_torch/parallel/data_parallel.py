@@ -28,13 +28,16 @@ per-sample trainers sum a window's gradients this way); calling the step
 is zero_grad, `accumulate`, one optimizer step. A mixed-precision
 pipeline (`DenseFusionPipeline(dtype=torch.bfloat16)`) runs the networks
 in bf16 over its f32 parameters. An f32 pipeline's step runs with TF32
-off (`pipeline.full_f32`), whatever the caller set. The step runs on the
+off (`pipeline.full_f32`), whatever the caller set. Every step runs with
+cuDNN restricted to deterministic algorithms (`deterministic_convs`), so
+two runs of one step from one state give bit-equal gradients. The step runs on the
 pipeline's device ("cuda" unless the pipeline was built with
 device="cpu"); the batch is moved there.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Mapping, Optional, Sequence
 
 import torch
@@ -44,6 +47,20 @@ from plr2_tpu_torch.losses.refine_loss import refine_loss
 from plr2_tpu_torch.pipeline import full_f32
 
 BATCH_KEYS = ("img", "points", "choose", "target", "model_points", "idx")
+
+
+@contextlib.contextmanager
+def deterministic_convs():
+    """Within the block cuDNN runs only deterministic algorithms (without
+    the flag its heuristics may pick a weight-gradient algorithm that adds
+    by atomics); the caller's flag is restored on exit."""
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic
+    cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        cudnn.deterministic = saved
 
 
 def adam(module: torch.nn.Module, lr: float) -> torch.optim.Adam:
@@ -125,7 +142,7 @@ class TrainStep:
         the network's `.grad` (no optimizer step). Returns (loss, dis),
         0-d tensors, not synchronised."""
         b = self._batch(batch)
-        with full_f32(self.pipe.dtype == torch.float32):
+        with full_f32(self.pipe.dtype == torch.float32), deterministic_convs():
             if self.refine_stage:
                 loss, dis = self._refine_loss(b)
             else:

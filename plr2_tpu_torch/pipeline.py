@@ -88,6 +88,7 @@ class DenseFusionPipeline:
         if dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"compute dtype {dtype}: float32 or bfloat16")
         self.device = resolve_device(device)
+        self.num_points, self.num_objects = num_points, num_objects
         with torch.device("meta"):
             posenet = PoseNet(num_points, num_objects, emb_dim, use_kernels)
             refiner = PoseRefineNet(num_points, num_objects)

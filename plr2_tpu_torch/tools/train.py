@@ -5,7 +5,8 @@ surface) over this package's trainers:
   python -m plr2_tpu_torch.tools.train --synthetic --nepoch 2 --cpu    # CPU
 
 Runs `Trainer` (per-sample accumulation), `FusedTrainer` (--fused) or
-`BatchTrainer` (--batched) `.fit` on synthetic frames, writes `best` and
+`BatchTrainer` (--batched, or --data_parallel 1 as in the JAX CLI) `.fit`
+on synthetic frames, writes `best` and
 `last` checkpoints under `<outf>/<dataset>/`, resumes from `last` when it
 exists, and stops cleanly on SIGTERM / SIGINT (the first signal is a
 request that `fit` honours at the next sample or batch boundary; a second
@@ -90,22 +91,29 @@ def refuse_unsupported(args) -> None:
         (args.config, "--config (YAML) needs config_io.py, which needs "
                       "PyYAML: ROADMAP A8"),
         (args.dataset_root or not args.synthetic,
-         "real datasets (--dataset_root; run with --synthetic): ROADMAP A3 "
+         "real datasets (--dataset_root; run with --synthetic): ROADMAP A4 "
          "(linemod.py, ycb.py)"),
         (args.workers > 0, "--workers > 0 (the threaded data plane): "
-                           "ROADMAP A3"),
+                           "ROADMAP A4"),
         (args.data_parallel > 1 or args.model_parallel > 1,
          "--data_parallel / --model_parallel > 1 (the mesh): ROADMAP A7"),
         (args.pretrained_trunk, "--pretrained_trunk (torch_import.py): "
                                 "ROADMAP A8"),
-        (args.cache_mb, "--cache_mb (frame_cache.py): ROADMAP A3"),
+        (args.cache_mb, "--cache_mb (frame_cache.py): ROADMAP A4"),
     ]
     for bad, what in refused:
         if bad:
             raise NotImplementedError(f"not ported: {what}")
-    if args.batched and args.fused:
-        raise SystemExit("--fused is the exact-semantics mode; --batched is "
-                         "the mean-gradient deviation: pick one")
+    if batched_mode(args) and args.fused:
+        raise SystemExit("--fused is the exact-semantics mode; --batched / "
+                         "--data_parallel is the mean-gradient deviation: "
+                         "pick one")
+
+
+def batched_mode(args) -> bool:
+    """JAX's choice (tools/train.py): --batched or any --data_parallel
+    (1 included) or --model_parallel > 1 runs BatchTrainer."""
+    return bool(args.batched or args.data_parallel or args.model_parallel > 1)
 
 
 def build_config(args):
@@ -123,17 +131,23 @@ def build_config(args):
         start_epoch=args.start_epoch, workers=args.workers,
         sym_slots=args.sym_slots, fused_accum=args.fused,
         batched_test=args.batched_test))
-    if args.num_points or args.mesh_points:
-        cfg = dataclasses.replace(
-            cfg,
-            model=dataclasses.replace(
-                cfg.model, num_points=args.num_points or cfg.model.num_points),
-            dataset=dataclasses.replace(
-                cfg.dataset,
-                num_points=args.num_points or cfg.dataset.num_points,
-                num_mesh_points=(args.mesh_points
-                                 or cfg.dataset.num_mesh_points)))
-    return cfg
+    if args.data_parallel:
+        cfg = dataclasses.replace(cfg, data_parallel=args.data_parallel)
+    return with_sizes(cfg, args.num_points, args.mesh_points)
+
+
+def with_sizes(cfg, num_points=None, mesh_points=None):
+    """`cfg` with the sampled-cloud size and the model-mesh point count
+    overridden where given (--num_points, --mesh_points)."""
+    if not (num_points or mesh_points):
+        return cfg
+    return dataclasses.replace(
+        cfg,
+        model=dataclasses.replace(
+            cfg.model, num_points=num_points or cfg.model.num_points),
+        dataset=dataclasses.replace(
+            cfg.dataset, num_points=num_points or cfg.dataset.num_points,
+            num_mesh_points=mesh_points or cfg.dataset.num_mesh_points))
 
 
 def main(argv=None):
@@ -154,7 +168,7 @@ def main(argv=None):
                                    num_points=n_pts, seed=args.seed + 1)
     logger = setup_logger(
         "train", os.path.join(args.log_dir, f"train_{args.dataset}.log"))
-    kind = (BatchTrainer if args.batched
+    kind = (BatchTrainer if batched_mode(args)
             else FusedTrainer if cfg.train.fused_accum else Trainer)
     # the first SIGTERM / SIGINT latches from here on; fit stops at the
     # next sample boundary and saves `last` (auto-resume replays the epoch)

@@ -28,7 +28,7 @@ for the data (`preprocess.Draws`) and one for the dropout masks, so the
 per-sample and fused trainers see the same samples and masks.
 
 Unsupported settings raise NotImplementedError: `workers > 0` (the
-threaded data plane, ROADMAP A3), `data_parallel > 1` and
+threaded data plane, ROADMAP A4), `data_parallel > 1` and
 `model_parallel > 1` (the mesh, ROADMAP A7). `sym_slots` is a no-op (the
 port's ADD-S runs on the symmetric rows alone, the result of every JAX
 setting).
@@ -77,7 +77,7 @@ def require_supported(config: PipelineConfig) -> None:
     if config.train.workers > 0:
         raise NotImplementedError(
             "workers > 0 (the threaded native data plane) is not ported: "
-            "ROADMAP A3 (prefetch.py, native/)")
+            "ROADMAP A4 (prefetch.py, native/)")
     if config.data_parallel > 1 or config.model_parallel > 1:
         raise NotImplementedError(
             "data_parallel / model_parallel > 1 (the mesh trainers) are not "

@@ -161,8 +161,10 @@ def test_initial_pose_first_index_wins_ties():
 
 
 def test_import_hygiene_no_jax_no_reference_package():
-    """The port (every module of it) and chip_smoke.py import neither jax
-    nor flax nor any plr2_tpu module, and read no .msgpack checkpoint."""
+    """The port (every module of it, the eval modules and CLIs included)
+    and chip_smoke.py import neither jax nor flax nor any plr2_tpu module,
+    read no .msgpack checkpoint, and leave matplotlib unimported (the card's
+    host has none; the report imports it inside the plotting function)."""
     code = (
         "import sys\n"
         "for m in ('jax', 'flax', 'plr2_tpu'):\n"
@@ -173,7 +175,12 @@ def test_import_hygiene_no_jax_no_reference_package():
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'plr2_tpu') and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"
-        "assert 'plr2_tpu_torch.ops.quant' in sys.modules\n"
+        "for m in ('ops.quant', 'ops.gather', 'eval', 'eval.metrics',\n"
+        "          'eval.evaluator', 'eval.report', 'tools.eval_linemod',\n"
+        "          'tools.infer', 'tools.eval_precision_modes',\n"
+        "          'tools.plot_accuracy'):\n"
+        "    assert 'plr2_tpu_torch.' + m in sys.modules, m\n"
+        "assert 'matplotlib' not in sys.modules\n"
         "print('ok')\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)

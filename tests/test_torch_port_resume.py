@@ -296,3 +296,26 @@ def test_cli_defaults_to_cuda(tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli.main(["--synthetic", "--nepoch", "1", "--outf", str(tmp_path),
                   "--log_dir", str(tmp_path)])
+
+
+@pytest.mark.parametrize("flags,kind", [
+    ([], "Trainer"), (["--fused"], "FusedTrainer"),
+    (["--batched"], "BatchTrainer"), (["--data_parallel", "1"], "BatchTrainer")],
+    ids=["default", "fused", "batched", "data_parallel_1"])
+def test_cli_picks_the_trainer_as_jax_does(flags, kind, tmp_path, monkeypatch):
+    """tools/train.py:188-193: --data_parallel (1 included) runs the batched
+    mean-gradient trainer, as --batched does."""
+    from plr2_tpu_torch.train import FusedTrainer
+    ran = []
+    for cls in (Trainer, FusedTrainer, BatchTrainer):
+        monkeypatch.setattr(cls, "fit", lambda self, state, *a, **k:
+                            ran.append(type(self).__name__) or state)
+    cli.main([*CLI, "--nepoch", "1", "--outf", str(tmp_path), "--log_dir",
+              str(tmp_path), *flags])
+    assert ran == [kind]
+
+
+def test_cli_refuses_data_parallel_with_fused(tmp_path):
+    with pytest.raises(SystemExit, match="pick one"):
+        cli.main([*CLI, "--outf", str(tmp_path), "--data_parallel", "1",
+                  "--fused"])
