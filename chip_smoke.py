@@ -110,6 +110,28 @@ non-zero, and there is no CPU fallback:
    --json ...` as processes (wall times), and the table against the same
    evaluation run in this process.
 
+18. serve (after eval): FrameEstimator (plr2_tpu_torch/serving.py) at YCB
+   width (21 objects, 1000 points, 500-point meshes, K = 5 slots, a 240 px
+   canvas on 480 x 640 make_scene frames, 4 refine iterations, seeded
+   weights): the device bbox against the host bbox (the frames' masks,
+   an empty mask, edges, windows larger than the canvas); CUDA's stable
+   sorts and the batched choose against the CPU's; run_with_samples
+   against the port's host chain on the card (host bbox -> raw_to_sample
+   with the same key words -> stack_samples -> estimate) on the wrap and
+   the subsample path: choose, points, image, target and poses bit-equal;
+   graph replay against eager, f32 and bf16, run and run_frames (F = 8):
+   bit-equal; the launches of an eager run (3 + 3 per PoseNet forward)
+   and the port's kernels in the profile of one replay against an eager
+   run's; kernels against a use_kernels=False pipeline (the estimate
+   gates); run_frames against 8 separate runs; valid / oversized on an
+   inactive slot, an absent label and a window larger than the canvas; an
+   eager run under torch.cuda.set_sync_debug_mode("error").
+19. serve timing: frames/s of run (K = 5) and run_frames (F = 8), eager
+   and graph, f32 and bf16 (CUDA events after warm-up), the latency of
+   one synchronised run, the device-busy share and launches of one eager
+   run and one replay (profiler), and the walls of `python -m
+   plr2_tpu_torch.tools.serve --synthetic --num_frames 8` and `--batch 8`.
+
 The second-to-last line is a JSON object with one entry per kernel and
 dtype; the last line is {"ok": true, "device": {...}}.
 """
@@ -228,6 +250,13 @@ BEFORE_MS = {"stage1": (138.307, 140.376), "fused_window": (405.355, 292.313),
 # of 4 objects (32 samples), per-crop (batch 1 at each crop) and batched
 # (batch 16 on a canvas of max(240, largest crop)), f32 and bf16
 EVAL_FRAMES, EVAL_BATCH, EVAL_CANVAS = 8, 16, 240
+
+# frame serving at YCB width and tools/serve.py's defaults: K object slots
+# (tools/bench_serving.py:27), F frames a run_frames call (serve --batch 8),
+# the 240 px canvas on 480 x 640 frames, 4 refine iterations; make_scene
+# frames of K objects with 500-point meshes
+SERVE_K, SERVE_F, SERVE_CANVAS, SERVE_ITERS = 5, 8, 240, 4
+SERVE_POINTS, SERVE_MESH = NUM_POINTS, 500
 
 DEVICE = "cuda"
 
@@ -921,7 +950,8 @@ def timing_phase(kern, launches, errs):
     entries = []
     for dt_name in ("f32", "bf16"):
         paths = (("f32", "train_stage1", "train_refine", "trainer", "fused",
-                  "eval_f32") if dt_name == "f32" else ("bf16", "mixed", "eval_bf16"))
+                  "eval_f32", "serve_f32") if dt_name == "f32"
+                 else ("bf16", "mixed", "eval_bf16", "serve_bf16"))
         for kname, t in tables[(dt_name, BATCH)].items():
             by_path = {PATH_NAMES.get(pth, pth): launches[pth][kname]
                        for pth in paths}
@@ -2361,6 +2391,416 @@ def eval_entry_phase():
     return walls
 
 
+# ---------------- frame serving (plr2_tpu_torch/serving.py) ----------------
+
+
+def serve_scene(seed, wrap=False):
+    """make_scene's frame of SERVE_K objects (500-point meshes), as the
+    serve CLI builds it, with its poses. wrap=True keeps depth on every
+    third row and every other column only: each mask then holds 300-800
+    pixels, under SERVE_POINTS (the wrap-sampling path); the full frames'
+    1,800-4,700 pixels take the subsample path."""
+    import numpy as np
+    from plr2_tpu_torch.data.synthetic import make_scene
+    frame, models = make_scene(num_objects=SERVE_K, model_points=SERVE_MESH,
+                               seed=seed)
+    depth = frame.depth.astype(np.float32)
+    if wrap:
+        keep = np.zeros_like(depth, bool)
+        keep[::3, ::2] = True
+        depth = np.where(keep, depth, 0.0).astype(np.float32)
+    return frame, models, depth
+
+
+def serve_inputs(frame, models, depth, obj_ids):
+    """The device tensors of one frame's `run` call (all slots' meshes and
+    ground-truth poses; inactive or absent ids take object 1's)."""
+    import numpy as np
+    ids = [int(o) for o in obj_ids]
+    pick = [o if o in frame.poses else 1 for o in ids]
+    intr = [frame.intrinsics[k] for k in ("cx", "cy", "fx", "fy", "cam_scale")]
+    out = (torch.from_numpy(frame.color), torch.from_numpy(depth),
+           torch.from_numpy(frame.label.astype(np.int32)), torch.tensor(ids),
+           torch.from_numpy(np.stack([models[o] for o in pick])).float(),
+           torch.tensor(intr, dtype=torch.float32))
+    tr = torch.from_numpy(np.stack([frame.poses[o][0] for o in pick])).float()
+    tt = torch.from_numpy(np.stack([frame.poses[o][1] for o in pick])).float()
+    return [t.to(DEVICE) for t in out], tr.to(DEVICE), tt.to(DEVICE)
+
+
+def serve_host_chain(pipe, frame, models, depth, obj_ids, words):
+    """The port's host chain on the card: host bbox -> raw_to_sample (the
+    same key words) -> stack_samples on the canvas -> estimate."""
+    from plr2_tpu_torch.data import Draws, raw_to_sample, stack_samples
+    samples = []
+    for o, kw in zip(obj_ids, words.tolist()):
+        raw = dict(color=frame.color, depth=depth,
+                   mask=(frame.label == o) & (depth > 0),
+                   target_r=frame.poses[o][0], target_t=frame.poses[o][1],
+                   model_points=models[o], obj_idx=o - 1,
+                   intrinsics=frame.intrinsics)
+        draws = Draws(tuple(kw), torch.ones(4), torch.arange(4), torch.zeros(3))
+        samples.append(raw_to_sample(raw, draws, pipe.num_points, device=DEVICE))
+    batch = stack_samples(samples, crop=SERVE_CANVAS)
+    return batch, pipe.estimate(batch.img, batch.points, batch.choose,
+                                batch.idx, refine_iterations=SERVE_ITERS)
+
+
+def same_poses(what, dt_name, got, ref, conf_got, conf_ref, gated=True):
+    """got vs ref FramePoses of the same slots: valid equal; each slot picks
+    the same best hypothesis, or one within CONF_TIE of it in `conf_got`;
+    |dq|, |dt| within POSE_TOL where the hypothesis is the same. Not
+    `gated`: printed only."""
+    ik, ip = conf_got.argmax(-1), conf_ref.argmax(-1)
+    same = ik == ip
+    rows = torch.arange(ik.shape[0], device=ik.device)
+    gap = float((conf_got[rows, ik] - conf_got[rows, ip]).abs().max())
+    dq = (got.quat.float() - ref.quat.float()).reshape(-1, 4)[same]
+    dt = (got.trans.float() - ref.trans.float()).reshape(-1, 3)[same]
+    dq = float(dq.abs().max()) if same.any() else 0.0
+    dt = float(dt.abs().max()) if same.any() else 0.0
+    ok = (torch.equal(got.valid, ref.valid) and gap <= CONF_TIE[dt_name]
+          and dq <= POSE_TOL[dt_name] and dt <= POSE_TOL[dt_name])
+    verdict = ("ok" if ok else "FAIL") if gated else "not gated"
+    print(f"  {what} {dt_name}: valid equal {torch.equal(got.valid, ref.valid)}; "
+          f"{int(same.sum())}/{same.numel()} slots pick the same hypothesis "
+          f"(others within {gap:.2e}); max |dq| {dq:.3e} max |dt| {dt:.3e} "
+          f"(tol {POSE_TOL[dt_name]:g}) {verdict}")
+    if gated and not ok:
+        raise AssertionError(f"serve: {what} {dt_name} disagree")
+    return dq, dt
+
+
+def recorded_conf(pipe, fn):
+    """fn()'s result and the per-point confidences of every PoseNet call it
+    made through `pipe`, concatenated over calls."""
+    seen = recording(pipe)
+    try:
+        out = fn()
+    finally:
+        del pipe.run_posenet
+    return out, torch.cat(seen)
+
+
+def port_kernel_counts(prof):
+    """Launches by CUDA kernel of the port's head and decoder kernels in a
+    profile (f32: head_sgemm_kernel once a layer; bf16: one
+    mlp_head_wgmma_kernel a ladder)."""
+    from torch.autograd import DeviceType
+    names = (*TC_KERNELS.values(), *F32_KERNELS.values())
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            for n in names:
+                if n in e.key:
+                    out[n] = out.get(n, 0) + e.count
+    return out
+
+
+@phase("serve")
+def serve_phase():
+    """FrameEstimator at YCB width (21 objects, 1000 points, 500-point
+    meshes, K = 5 slots, canvas 240, 4 refine iterations) on make_scene
+    frames: the device bbox against the host bbox; CUDA's stable sorts and
+    the batched choose against the CPU's; run_with_samples against the
+    port's host chain on the card (wrap and subsample paths); graph replay
+    against eager (f32 and bf16, run and run_frames); the kernels against a
+    use_kernels=False pipeline; run_frames against F separate runs;
+    valid / oversized slots; the launch counts of an eager run and the
+    kernels of one replay's profile; an eager run under
+    torch.cuda.set_sync_debug_mode("error")."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from plr2_tpu_torch import DenseFusionPipeline
+    from plr2_tpu_torch.data import bbox as t_bbox
+    from plr2_tpu_torch.data import preprocess as t_pre
+    from plr2_tpu_torch.ops import launch_counts, reset_launch_counts
+    from plr2_tpu_torch.serving import FrameEstimator, frame_key_words
+
+    scenes = [serve_scene(s) for s in range(SERVE_F)]
+    ids = np.arange(1, SERVE_K + 1)
+
+    # 1. the device bbox vs the host bbox: every object of the frames, an
+    # empty mask, masks on the edges and corners, and windows larger than
+    # the canvas, on the canvas-padded mask as the program pads it
+    masks = [(fr.label == o) & (d > 0) for fr, _, d in scenes for o in ids]
+    h, w = masks[0].shape
+    for r0, c0, rh, cw in ((0, 0, 0, 0), (0, 0, 23, 31), (455, 600, 25, 40),
+                           (0, 610, 50, 30), (470, 0, 10, 300),
+                           (100, 100, 300, 260), (0, 0, 480, 640)):
+        m = np.zeros((h, w), bool)
+        m[r0:r0 + rh, c0:c0 + cw] = True
+        masks.append(m)
+    padded = torch.from_numpy(np.pad(np.stack(masks), ((0, 0), (0, SERVE_CANVAS),
+                                                       (0, SERVE_CANVAS)))).to(DEVICE)
+    got = torch.stack(t_bbox.device_bbox_from_mask(padded, h, w), -1).tolist()
+    want = [list(t_bbox.get_bbox_from_mask(m, h, w)) for m in masks]
+    over = sum(max(b[1] - b[0], b[3] - b[2]) > SERVE_CANVAS for b in want)
+    print(f"  device bbox vs host bbox on {len(masks)} masks ({over} windows "
+          f"larger than the canvas): {'equal' if got == want else 'FAIL'}")
+    if got != want:
+        raise AssertionError("serve: the device bbox differs from the host bbox")
+
+    # 2. CUDA's stable sorts break ties toward the lowest index, as the
+    # CPU's do (the JAX contract of sample_choose), and the batched choose
+    # on the card equals the CPU's at the canvas size
+    g = torch.Generator().manual_seed(5)
+    keys = torch.randint(0, 50, (SERVE_K, SERVE_CANVAS ** 2), generator=g)
+    sorts_ok = all(torch.equal(torch.sort(keys.to(DEVICE), dim=-1, descending=d,
+                                          stable=True).indices.cpu(),
+                               torch.sort(keys, dim=-1, descending=d,
+                                          stable=True).indices)
+                   for d in (False, True))
+    cm = torch.zeros((SERVE_K, SERVE_CANVAS ** 2), dtype=torch.bool)
+    for row, n in enumerate((0, 600, SERVE_POINTS, 1001, 20000)):
+        cm[row, torch.randperm(SERVE_CANVAS ** 2, generator=g)[:n]] = True
+    kw = torch.randint(0, 2 ** 32, (SERVE_K, 2), generator=g)
+    choose_ok = torch.equal(t_pre.sample_choose_batch(
+        cm.to(DEVICE), SERVE_POINTS, kw.to(DEVICE), width=SERVE_CANVAS).cpu(),
+        t_pre.sample_choose_batch(cm, SERVE_POINTS, kw, width=SERVE_CANVAS))
+    print(f"  stable sorts of {tuple(keys.shape)} int64 with ties, CUDA vs CPU: "
+          f"{'equal' if sorts_ok else 'FAIL'}; batched choose (0, 600, 1000, "
+          f"1001, 20000 pixels) CUDA vs CPU: {'equal' if choose_ok else 'FAIL'}")
+    if not (sorts_ok and choose_ok):
+        raise AssertionError("serve: CUDA's sort or choose differs from the CPU's")
+
+    kern = DenseFusionPipeline(SERVE_POINTS, NUM_OBJ, device=DEVICE, seed=0)
+    plain = DenseFusionPipeline(SERVE_POINTS, NUM_OBJ, use_kernels=False,
+                                device=DEVICE, seed=0)
+    est = {g: FrameEstimator(kern, canvas=SERVE_CANVAS, refine_iterations=SERVE_ITERS,
+                             graphs=g) for g in (False, True)}
+    frames = [serve_inputs(fr, m, d, ids)[0] for fr, m, d in scenes]
+    stacked = [torch.stack(x) for x in zip(*frames)]
+    seeds = torch.arange(SERVE_F, device=DEVICE)
+    launches, profiles, gaps = {}, {}, {}
+    for dt_name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        if dtype != torch.float32:
+            kern.cast(dtype)
+            plain.cast(dtype)
+        eager, graph = est[False], est[True]
+
+        # 3. the serving path vs the port's host chain, wrap and subsample
+        for regime in ("wrap", "subsample"):
+            fr, models, depth = serve_scene(0, wrap=regime == "wrap")
+            counts_ = [int(((fr.label == o) & (depth > 0)).sum()) for o in ids]
+            inputs, tr, tt = serve_inputs(fr, models, depth, ids)
+            poses, sam = eager.run_with_samples(*inputs, 0, target_r=tr,
+                                                target_t=tt)
+            words = frame_key_words(torch.tensor(0), torch.from_numpy(ids))
+            batch, ref = serve_host_chain(kern, fr, models, depth, ids, words)
+            eq = {f: torch.equal(getattr(sam, f), getattr(batch, f))
+                  for f in ("choose", "points", "img", "target", "idx")}
+            eq.update({f: torch.equal(getattr(poses, f), getattr(ref, f))
+                       for f in ("quat", "trans", "confidence")})
+            gp, gs = graph.run_with_samples(*inputs, 0, target_r=tr, target_t=tt)
+            eq["graph"] = all(torch.equal(a, b) for a, b in zip(
+                (*gp, *gs), (*poses, *sam)))
+            ok = all(eq.values()) and bool(poses.valid.all())
+            print(f"  run_with_samples {dt_name} {regime} (pixels {counts_}, "
+                  f"{SERVE_POINTS} points) vs the host chain: "
+                  f"{ {k: v for k, v in eq.items()} } {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"serve {dt_name} {regime}: the serving path "
+                                     "differs from the host chain")
+
+        # 4. launches of an eager run and an eager run_frames (one PoseNet
+        # forward each); the kernels of one replay's profile vs an eager one
+        reset_launch_counts()
+        one = eager.run(*frames[0], 0)
+        torch.cuda.synchronize()
+        seen_run = launch_counts()
+        frames_eager = eager.run_frames(*stacked, seeds)
+        torch.cuda.synchronize()
+        seen = launch_counts()
+        print(f"  launches in one eager run ({dt_name}): {seen_run}; with one "
+              f"eager run_frames (F = {SERVE_F}): {seen}")
+        if seen_run != counts(mlp_head=3, upconv3x3_prelu=3) or \
+                seen != counts(mlp_head=6, upconv3x3_prelu=6):
+            raise AssertionError("serve: expected 3 mlp_head + 3 upconv3x3_prelu "
+                                 "launches per PoseNet forward")
+        launches[f"serve_{dt_name}"] = seen
+        graph.run(*frames[0], 0)  # capture (warm-up launches counted there)
+        for name, fn in (("eager run", lambda: eager.run(*frames[0], 0)),
+                         ("graph replay", lambda: graph.run(*frames[0], 0))):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            profiles[(dt_name, name)] = port_kernel_counts(prof)
+        pe, pg = profiles[(dt_name, "eager run")], profiles[(dt_name, "graph replay")]
+        print(f"  the port's kernels in one run's profile ({dt_name}): eager {pe}, "
+              f"one graph replay {pg} {'ok' if pe == pg and pe else 'FAIL'}")
+        if pe != pg or not pe:
+            raise AssertionError("serve: a replay does not launch the kernels of "
+                                 "an eager run")
+
+        # 5. graph replay vs eager, bit for bit (run on every frame, then
+        # run_frames)
+        bad = [i for i, f in enumerate(frames) if not all(
+            torch.equal(a, b) for a, b in zip(graph.run(*f, i), eager.run(*f, i)))]
+        frames_graph = graph.run_frames(*stacked, seeds)
+        fr_eq = all(torch.equal(a, b) for a, b in zip(frames_graph, frames_eager))
+        print(f"  graph replay vs eager ({dt_name}): run on {SERVE_F} frames "
+              f"{'bit-equal' if not bad else f'DIFFER on {bad}'}, run_frames "
+              f"{'bit-equal' if fr_eq else 'DIFFER'}")
+        if bad or not fr_eq:
+            raise AssertionError(f"serve {dt_name}: graph replay differs from eager")
+
+        # 6. kernels vs plain versions, and run_frames vs F separate runs,
+        # after 0, 2 (the estimate's configuration, where POSE_TOL was set)
+        # and 4 (the served default) refine iterations. The refiner runs no
+        # port kernel: it carries the PoseNet's gap on, and with seeded
+        # weights it amplifies bf16 rounding (measured on an H100 80GB HBM3
+        # at 700 W, kernels vs plain: |dt| 7.8e-3 after 0 iterations, 4.4e-2
+        # after 2, 1.3e-1 after 4, on translations up to 3.5 m), so bf16 is
+        # gated up to 2 iterations and printed at 4; f32 is gated at all
+        for iters in (0, ITERS, SERVE_ITERS):
+            gated = dt_name == "f32" or iters <= ITERS
+            ek, ep = (FrameEstimator(p_, canvas=SERVE_CANVAS, refine_iterations=iters,
+                                     graphs=False) for p_ in (kern, plain))
+            got, ck = recorded_conf(kern, lambda: ek.run_frames(*stacked, seeds))
+            reset_launch_counts()
+            ref, cp = recorded_conf(plain, lambda: ep.run_frames(*stacked, seeds))
+            if launch_counts() != counts():
+                raise AssertionError("serve: the plain pipeline launched a kernel")
+            gaps[(dt_name, iters, "plain")] = same_poses(
+                f"run_frames (F = {SERVE_F}, {iters} iterations) kernels vs plain",
+                dt_name, got, ref, ck, cp, gated)
+            singles, cs = recorded_conf(kern, lambda: [
+                ek.run(*f, i) for i, f in enumerate(frames)])
+            singles = type(got)(*(torch.stack(x) for x in zip(*singles)))
+            gaps[(dt_name, iters, "runs")] = same_poses(
+                f"run_frames vs {SERVE_F} runs ({iters} iterations)", dt_name,
+                got, singles, ck, cs, gated)
+            for x in (one.quat, one.trans, got.quat, got.trans):
+                if not torch.isfinite(x).all():
+                    raise AssertionError(f"serve {dt_name}: non-finite pose")
+
+    # 7. valid / oversized: an inactive slot, an absent label and a window
+    # larger than the canvas (a 260 x 260 object)
+    fr, models, depth = serve_scene(1)
+    label = fr.label.copy()
+    label[100:360, 300:560] = 21
+    depth = depth.copy()
+    depth[100:360, 300:560] = 1200.0
+    fr.label = label
+    obj_ids = np.array([2, 0, 99, 21, 1])
+    inputs, _, _ = serve_inputs(fr, models, depth, obj_ids)
+    for g_ in (False, True):
+        p = est[g_].run(*inputs, 3)
+        ok = (p.valid.tolist() == [True, False, False, False, True]
+              and p.oversized.tolist() == [False, False, False, True, False])
+        print(f"  slots {obj_ids.tolist()} ({'graph' if g_ else 'eager'}): valid "
+              f"{p.valid.tolist()} oversized {p.oversized.tolist()} "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("serve: valid / oversized flags")
+
+    # 8. no host sync in an eager run (after its warm-up, inputs on the card)
+    seed0 = torch.tensor(0, device=DEVICE)
+    eager = est[False]
+    eager.run(*frames[0], seed0)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eager.run(*frames[0], seed0)
+        eager.run_frames(*stacked, seeds)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    print("  eager run and run_frames (bf16) under "
+          "torch.cuda.set_sync_debug_mode('error'): no host sync")
+    kern.cast(torch.float32)
+    eager.run(*frames[0], seed0)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eager.run(*frames[0], seed0)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    print("  eager run (f32) under set_sync_debug_mode('error'): no host sync")
+    del est, plain
+    torch.cuda.empty_cache()
+    return kern, frames, stacked, launches
+
+
+def serve_cli_walls():
+    """Wall time of the serve CLI as a process (start and build reuse
+    included): single frames and --batch, and the steady per-frame ms it
+    prints (the median of its later frames)."""
+    walls = {}
+    for name, extra in (("single", []), (f"batch{SERVE_F}", ["--batch", str(SERVE_F)])):
+        cmd = [sys.executable, "-m", "plr2_tpu_torch.tools.serve", "--synthetic",
+               "--num_frames", str(SERVE_F), *extra]
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                             timeout=600)
+        walls[name] = time.perf_counter() - t0
+        if res.returncode != 0:
+            raise AssertionError(f"serve CLI failed: {res.stderr[-3000:]}")
+        lines = [json.loads(x) for x in res.stdout.splitlines() if x.startswith("{")]
+        if len(lines) != SERVE_F:
+            raise AssertionError(f"serve CLI: {len(lines)} frame lines, not {SERVE_F}")
+        dropped = sum(x.get("dropped", 0) for x in lines)
+        ms = sorted(x["ms"] for x in lines[1:]) or [lines[0]["ms"]]
+        print(f"  python -m plr2_tpu_torch.tools.serve --synthetic --num_frames "
+              f"{SERVE_F} {' '.join(extra)}: wall {walls[name]:.2f} s, first frame "
+              f"{lines[0]['ms']} ms, later frames median {ms[len(ms) // 2]} ms, "
+              f"{dropped} slots dropped")
+    return walls
+
+
+@phase("serve timing")
+def serve_timing_phase(kern, frames, stacked):
+    """Frames/s of run (K = 5, one frame) and run_frames (F = 8), eager and
+    graph, f32 and bf16: CUDA events around back-to-back calls after
+    warm-up (inputs on the card); the latency of one synchronised run
+    (host clock, median); profiles of one eager run and one replay (device
+    busy share, launches); the serve CLI's walls."""
+    from torch.profiler import ProfilerActivity, profile
+    from plr2_tpu_torch.serving import FrameEstimator
+    rates, lat = {}, {}
+    seeds = torch.arange(SERVE_F, device=DEVICE)
+    for dt_name, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        kern.cast(dtype)
+        for mode in ("eager", "graph"):
+            fe = FrameEstimator(kern, canvas=SERVE_CANVAS,
+                                refine_iterations=SERVE_ITERS,
+                                graphs=mode == "graph")
+            one = lambda: fe.run(*frames[0], 0)
+            ms = time_ms(one, 20, warmup=3)
+            rates[f"run_{mode}_{dt_name}"] = 1e3 / ms
+            walls = []
+            for _ in range(10):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                one()
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            lat[f"run_{mode}_{dt_name}"] = sorted(walls)[len(walls) // 2]
+            fms = time_ms(lambda: fe.run_frames(*stacked, seeds), 5, warmup=2)
+            rates[f"frames_{mode}_{dt_name}"] = SERVE_F * 1e3 / fms
+            print(f"  {dt_name} {mode}: run (K = {SERVE_K}) {ms:.3f} ms = "
+                  f"{1e3 / ms:.1f} frames/s (one synchronised run: "
+                  f"{lat[f'run_{mode}_{dt_name}']:.3f} ms); run_frames "
+                  f"(F = {SERVE_F}) {fms:.3f} ms = {SERVE_F * 1e3 / fms:.1f} frames/s")
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                one()
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+            busy = top_device_kernels(
+                prof, wall, f"one {mode} run ({dt_name}, K = {SERVE_K})",
+                8 if mode == "eager" else 4)
+            lat[f"busy_{mode}_{dt_name}"] = busy
+            del fe
+            torch.cuda.empty_cache()
+    walls = serve_cli_walls()
+    return rates, lat, walls
+
+
 def main():
     t0 = time.perf_counter()
     import_port()
@@ -2372,6 +2812,11 @@ def main():
     kern, launches = main_path_phase()
     eval_launches, eval_rates = eval_phase()
     launches.update(eval_launches)
+    skern, sframes, sstacked, serve_launches = serve_phase()
+    launches.update(serve_launches)
+    serve_rates, serve_lat, serve_walls = serve_timing_phase(skern, sframes, sstacked)
+    del skern, sframes, sstacked
+    torch.cuda.empty_cache()
     tkern, batch, train_launches, train_result = train_phase()
     launches.update(train_launches)
     trainer_launches, trainer_out = trainer_phase(errs)
@@ -2404,6 +2849,9 @@ def main():
           f"determinism {json.dumps({k: round(v, 3) for k, v in det.items()})}, "
           f"eval samples/s {json.dumps({k: round(v, 2) for k, v in eval_rates.items()})}, "
           f"eval CLI walls s {json.dumps({k: round(v, 2) for k, v in eval_walls.items()})}, "
+          f"serve frames/s {json.dumps({k: round(v, 1) for k, v in serve_rates.items()})}, "
+          f"serve ms {json.dumps({k: round(v, 3) for k, v in serve_lat.items()})}, "
+          f"serve CLI walls s {json.dumps({k: round(v, 2) for k, v in serve_walls.items()})}, "
           f"tf32 {json.dumps({k: round(v, 6) for k, v in tf32.items()})}, "
           f"estimate profiles {json.dumps({d: {k: round(v, 3) for k, v in p.items()} for d, p in est_profile.items()})}")
     print(smi)

@@ -19,11 +19,20 @@ same sample.
     wrap-padded cyclically
   * none -> all zeros (the reference returns a zero sample).
 Indices are int64 (torch's index type; JAX returns int32).
+
+`sample_choose_batch` and `preprocess_crops` are the batched, branch-free
+twins that the frame-serving program runs (`plr2_tpu_torch/serving.py`):
+slots on a leading axis, key words as a (K, 2) int64 tensor, crop origins
+and object indices as tensors, no noise. They compute both sampling
+candidates for every slot and pick per slot, as the JAX function does, so
+nothing reads a count back to the host: no `.item()`, no `nonzero`, and
+the constants they need are cached on each device (`_constant`).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+import functools
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -80,21 +89,27 @@ def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
     return (lo * c + (((hi * c) & 0xFFFF) << 16)) & _M32
 
 
-def coord_scores(key_words: Tuple[int, int], h: int, w: int,
-                 device=None) -> torch.Tensor:
+def coord_scores(key_words: Union[Tuple[int, int], torch.Tensor], h: int,
+                 w: int, device=None) -> torch.Tensor:
     """(h * w,) int64 scores in [0, 2^31) keyed by each pixel's
     window-relative (row, col): the JAX `_coord_scores` murmur3-style uint32
-    mix, in int64 arithmetic masked to 32 bits."""
-    k0, k1 = (int(k) & _M32 for k in key_words)
+    mix, in int64 arithmetic masked to 32 bits. `key_words` is a pair of
+    ints, or an int64 tensor (..., 2) of pairs (on the scores' device),
+    which gives (..., h * w) scores, one row per pair."""
+    if isinstance(key_words, torch.Tensor):
+        device = key_words.device
+        k0, k1 = (key_words[..., i, None] & _M32 for i in (0, 1))
+    else:
+        k0, k1 = (int(k) & _M32 for k in key_words)
     r = torch.arange(h, dtype=torch.int64, device=device)[:, None]
     c = torch.arange(w, dtype=torch.int64, device=device)[None, :]
-    x = _mul32(r, 0x9E3779B1) ^ _mul32(c, 0x85EBCA77)
+    x = (_mul32(r, 0x9E3779B1) ^ _mul32(c, 0x85EBCA77)).reshape(-1)
     x = (x + k0) & _M32
     x = _mul32(x ^ (x >> 16), 0x7FEB352D)
     x = (x + k1) & _M32
     x = _mul32(x ^ (x >> 15), 0x846CA68B)
     x = x ^ (x >> 16)
-    return (x >> 1).reshape(-1)
+    return x >> 1
 
 
 def sample_choose(mask_flat: torch.Tensor, num_points: int,
@@ -118,15 +133,58 @@ def sample_choose(mask_flat: torch.Tensor, num_points: int,
     return torch.sort(order[:num_points]).values
 
 
+def sample_choose_batch(mask_flat: torch.Tensor, num_points: int,
+                        key_words: torch.Tensor,
+                        width: Optional[int] = None) -> torch.Tensor:
+    """`sample_choose` of K masks at once, branch-free: mask_flat (K, P)
+    bool, key_words (K, 2) int64 -> (K, num_points) int64, each row equal
+    to `sample_choose` of that row and its words.
+
+    Both candidates are computed for every row, as the JAX function does:
+    the wrap path (the masked indices in ascending order by a stable sort,
+    taken at j % max(count, 1)) and the subset path (a stable descending
+    sort of the coordinate scores with -1 at unmasked pixels, the first
+    num_points, sorted ascending). Each row then takes the subset where
+    its count exceeds num_points and is zeroed where its count is 0."""
+    k, p = mask_flat.shape
+    if num_points > p:
+        raise ValueError(f"num_points {num_points} exceeds the {p} pixels "
+                         "of a window")
+    dev = mask_flat.device
+    count = mask_flat.sum(-1, keepdim=True)  # (K, 1)
+    j = torch.arange(num_points, device=dev)
+    # masked pixels first, each group in ascending index order
+    ordered = torch.sort((~mask_flat).to(torch.uint8), dim=-1,
+                         stable=True).indices
+    wrap = torch.gather(ordered, 1, j % torch.clamp(count, min=1))
+    w = width or p
+    scores = torch.where(mask_flat, coord_scores(key_words, p // w, w),
+                         torch.full((), -1, dtype=torch.int64, device=dev))
+    top = torch.sort(scores, dim=-1, descending=True,
+                     stable=True).indices[:, :num_points]
+    subset = torch.sort(top, dim=-1).values
+    choose = torch.where(count > num_points, subset, wrap)
+    return torch.where(count > 0, choose, torch.zeros_like(choose))
+
+
 def normalize_image(img_u8: torch.Tensor) -> torch.Tensor:
     """uint8 (H, W, 3) -> normalised float32, torchvision semantics."""
     x = img_u8.float() / 255.0
     return _normalize01(x)
 
 
+@functools.lru_cache(maxsize=None)
+def _constant(values: Tuple[float, ...], device: torch.device,
+              dtype: torch.dtype) -> torch.Tensor:
+    """`values` as a tensor on `device`, made once per device and dtype (a
+    copy from the host at every call would sync, and a CUDA graph cannot
+    capture one)."""
+    return torch.tensor(values, dtype=dtype, device=device)
+
+
 def _normalize01(x: torch.Tensor) -> torch.Tensor:
-    mean = torch.tensor(IMAGENET_MEAN, device=x.device)
-    std = torch.tensor(IMAGENET_STD, device=x.device)
+    mean = _constant(IMAGENET_MEAN, x.device, torch.float32)
+    std = _constant(IMAGENET_STD, x.device, torch.float32)
     return (x - mean) / std
 
 
@@ -141,7 +199,7 @@ def _blend(img1, img2, ratio):
 
 def _rgb_to_grayscale(x):
     """(..., 3) -> (..., 1)."""
-    w = torch.tensor([0.2989, 0.587, 0.114], dtype=x.dtype, device=x.device)
+    w = _constant((0.2989, 0.587, 0.114), x.device, x.dtype)
     return (x * w).sum(-1, keepdim=True)
 
 
@@ -255,3 +313,37 @@ def preprocess_crop(color_crop: torch.Tensor,   # (H, W, 3) uint8
     return Sample(points=cloud, choose=choose, img=_normalize01(img01),
                   target=target, model_points=model_points.float(),
                   idx=torch.tensor(int(obj_idx), device=dev))
+
+
+def preprocess_crops(color_crops: torch.Tensor,   # (K, H, W, 3) uint8
+                     depth_crops: torch.Tensor,   # (K, H, W) f32 raw depth
+                     mask_crops: torch.Tensor,    # (K, H, W) bool
+                     row0: torch.Tensor,          # (K,) int crop origins
+                     col0: torch.Tensor,          # (K,)
+                     intrinsics: torch.Tensor,    # (5,) or (K, 5) cx cy fx fy scale
+                     model_points: torch.Tensor,  # (K, M, 3)
+                     target_r: torch.Tensor,      # (K, 3, 3)
+                     target_t: torch.Tensor,      # (K, 3)
+                     obj_idx: torch.Tensor,       # (K,) int
+                     key_words: torch.Tensor,     # (K, 2) int64
+                     num_points: int) -> Sample:
+    """K crop windows -> one batched Sample (fields with a leading K axis),
+    `preprocess_crop` with add_noise=False on each window, computed
+    without a host sync: every argument but num_points is a tensor on the
+    crops' device. Row k equals `preprocess_crop` of window k given the
+    same key words (tests/test_torch_port_serving.py)."""
+    k, h, w = depth_crops.shape
+    choose = sample_choose_batch(mask_crops.reshape(k, h * w), num_points,
+                                 key_words, width=w)
+    depth_sel = torch.gather(depth_crops.reshape(k, h * w), 1, choose)
+    rows = (choose // w).float() + row0.float()[:, None]
+    cols = (choose % w).float() + col0.float()[:, None]
+    # (5,) or one row per window: each (1 or K, 1) beside the (K, N) maps
+    cx, cy, fx, fy, cam_scale = intrinsics.float().reshape(-1, 1, 5).unbind(-1)
+    cloud = backproject_depth(depth_sel, rows, cols, cx, cy, fx, fy, cam_scale)
+    target = transform_points(model_points.float(), target_r.float(),
+                              target_t.float())
+    return Sample(points=cloud, choose=choose,
+                  img=_normalize01(color_crops.float() / 255.0),
+                  target=target, model_points=model_points.float(),
+                  idx=obj_idx)
