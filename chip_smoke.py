@@ -73,6 +73,8 @@ non-zero, and there is no CPU fallback:
    and seed (losses 1e-4 relative, parameters 1e-3 relative L2 over the
    network); every
    kernel of that path against its plain version at each crop's shapes.
+   Every trainer phase below runs its eager path (graphs=False); phase 20
+   holds the CUDA graphs against it.
 12. fused: one FusedTrainer epoch (window 8, f32) with its launch counts;
    a window on its shared canvas against 8 per-sample steps of the same
    samples (losses and gradients 1e-5 relative L2), and the per-sample
@@ -132,6 +134,33 @@ non-zero, and there is no CPU fallback:
    run and one replay (profiler), and the walls of `python -m
    plr2_tpu_torch.tools.serve --synthetic --num_frames 8` and `--batch 8`.
 
+20. train graphs (after train entry timing): the training programs as
+   CUDA graphs (plr2_tpu_torch/train/graphs.py). The host time of one
+   eager per-sample stage-1 sample split into the data path (get_raw ->
+   raw_to_sample -> preprocess_crop, synchronised), the kernels' plain
+   backward passes (host time of the mlp_head / upconv3x3_prelu autograd
+   Functions' backward, and their device time) and the rest (Python,
+   dispatch and autograd, per launch), beside the device's busy time;
+   a fused window of WINDOW as one graph against the per-sample loop on
+   the same samples, masks and BN state (bit-equal, or FUSED_TOL), two
+   replays bit-equal, the launch counters of the capture (warm-up + capture:
+   the program twice; a replay adds none), the port's kernels in one
+   replay's profile and its busy share; window ms graph vs eager (masks,
+   copy-in and Adam included) and the split after the graphs; the refine
+   stage's window (WINDOW // ITERS samples) as a graph against its loop,
+   two replays and the counters; a FusedTrainer epoch with graphs against
+   phase 12's eager epoch (same seeds; counters per capture); the mixed
+   bf16 step at batch MIXED_BATCH as a graph against eager, two replays,
+   and sym_slots auto (compact) against 0 (mixed): bit-equal; the refine
+   stage's mixed step as a graph against eager, two replays; step ms of
+   each and the busy share of an eager step and a replay; a graphed
+   BatchTrainer epoch against phase 13's eager one; a full synthetic epoch
+   (KEY_FRAMES frames, 256 samples) of each graphed trainer, twice, and of
+   its eager twin: the distinct keys, the captures (fails if a key is
+   captured twice), samples/s and the card memory the graphs held; remat
+   at batch TRAIN_BATCH, f32, stage 1: gradients and BN bit-equal, the
+   step's peak memory above the state (must be lower) and step ms.
+
 The second-to-last line is a JSON object with one entry per kernel and
 dtype; the last line is {"ok": true, "device": {...}}.
 """
@@ -180,7 +209,9 @@ CONF_TIE = {"f32": 1e-5, "bf16": 1e-2}
 # symmetric objects (plr2_tpu/config.py:139), the reference w and lr
 TRAIN_BATCH, MESH_POINTS, MESH_LARGE = 32, 500, 2600
 SYM_LIST, W, LR = (12, 15, 18, 19, 20), 0.015, 1e-4
-# stage-1 ADD-S match: the symmetric samples of idx = arange(32) % 21
+# stage-1 ADD-S match: the symmetric samples of idx = arange(32) % 21; the
+# steps on train's batch compact the match to exactly these rows
+# (make_train_step(sym_slots=NUM_SYM): the compact branch)
 NUM_SYM = sum(int(i % NUM_OBJ in SYM_LIST) for i in range(TRAIN_BATCH))
 # nn_match_mxu vs its twin: the kernel fuses a.(-2b) into FMAs and the twin
 # rounds each product, so they may pick different targets only where two
@@ -219,6 +250,9 @@ LIB_SYM_IDS = (13, 16, 19, 20, 21)
 TRAIN_FRAMES, TEST_FRAMES, PER_FRAME = 4, 2, 4  # 16 train / 8 test samples
 WINDOW = 8  # the per-sample trainers' accumulation window (batch_size)
 MIXED_BATCH, MIXED_STEPS = 32, 3
+# a full synthetic epoch for the training graphs' key space (phase 20): 64
+# frames of 4 objects, 256 samples, 32 windows of 8 or 8 batches of 32
+KEY_FRAMES = 64
 # one stage-1 Trainer epoch through the kernels vs through the plain
 # versions (each window starting from one state): per-sample loss,
 # relative; PoseNet's parameters after each window's Adam step, relative L2
@@ -299,6 +333,13 @@ F32_STAGES = [(2, 5, 7, 6, 10), (1, 9, 6, 37, 130)]
 # and a head whose x rows are not 16 bytes (C = 202: scalar loads of A)
 F32_HEADS = [(977, (202, 40, 24, 12, 5))]
 PATH_NAMES = {"f32": "estimate_f32", "bf16": "estimate_bf16"}
+# the port's kernels in an f32 training replay's profile (by a substring of
+# their names): the heads, the decoder, the ADD-S match, the gather's
+# backward
+GRAPH_KERNELS = ("head_sgemm_kernel", "upconv_sgemm_kernel", "nn_kernel<",
+                 "gather_bwd_kernel")
+# the autograd Functions around the kernels whose backward is plain PyTorch
+BACKWARD_FUNCTIONS = ("_MLPHeadBackward", "_UpConvBackward")
 
 
 def counts(**launched):
@@ -683,7 +724,9 @@ def train_batch(seed=6):
         + torch.randn((b, 1, 3), generator=g) * 0.05
     batch = dict(img=img, points=points, choose=choose, target=target,
                  model_points=mp, idx=torch.arange(b) % NUM_OBJ)
-    return {k: v.to(DEVICE) for k, v in batch.items()}
+    # the host object ids: the loss picks its ADD-S branch from them
+    return {**{k: v.to(DEVICE) for k, v in batch.items()},
+            "obj": tuple(i % NUM_OBJ for i in range(b))}
 
 
 def compare_steps(what, mod_k, mod_p, step_k, step_p, met_k, met_p, before):
@@ -773,8 +816,10 @@ def train_phase():
         if iters:  # the same state: PoseNet as the kernel run left it
             plain.posenet.load_state_dict(kern.posenet.state_dict())
         before = {k: v.detach().clone() for k, v in mod_k.named_parameters()}
-        step_k = make_train_step(kern, SYM_LIST, W, LR, refine_iterations=iters)
-        step_p = make_train_step(plain, SYM_LIST, W, LR, refine_iterations=iters)
+        step_k = make_train_step(kern, SYM_LIST, W, LR, refine_iterations=iters,
+                                 sym_slots=NUM_SYM)
+        step_p = make_train_step(plain, SYM_LIST, W, LR, refine_iterations=iters,
+                                 sym_slots=NUM_SYM)
         reset_launch_counts()
         met_k = run_step(step_k, batch, seed=11)
         seen = launch_counts()
@@ -950,8 +995,8 @@ def timing_phase(kern, launches, errs):
     entries = []
     for dt_name in ("f32", "bf16"):
         paths = (("f32", "train_stage1", "train_refine", "trainer", "fused",
-                  "eval_f32", "serve_f32") if dt_name == "f32"
-                 else ("bf16", "mixed", "eval_bf16", "serve_bf16"))
+                  "fused_graphs", "eval_f32", "serve_f32") if dt_name == "f32"
+                 else ("bf16", "mixed", "mixed_graphs", "eval_bf16", "serve_bf16"))
         for kname, t in tables[(dt_name, BATCH)].items():
             by_path = {PATH_NAMES.get(pth, pth): launches[pth][kname]
                        for pth in paths}
@@ -1129,7 +1174,8 @@ def train_timing_phase(kern, batch, result, launches, errs):
         ops_ms = slots / knn.FP32_SLOTS_PER_S * 1e3
         bytes_ms = (12 * s * p + 12 * s * m2 + out_bytes * s * p) / HBM_BYTES_PER_S * 1e3
         by_path = {pth: launches[pth][name] for pth in (
-            "train_stage1", "train_refine", "trainer", "fused", "mixed")}
+            "train_stage1", "train_refine", "trainer", "fused", "mixed",
+            "fused_graphs", "mixed_graphs")}
         print(f"  {name} f32 q {tuple(q.shape)} t {tuple(t.shape)}: kernel "
               f"{k:.3f} ms ({slots / k / 1e9:.1f} T FP32 slots/s at "
               f"{slots // (s * p * m2)} a pair), plain {pl:.3f} ms, library "
@@ -1303,12 +1349,13 @@ def trainer_phase(errs):
             print(f"  {line}")
         # per sample: one PoseNet forward (3 + 3 launches); the ADD-S match
         # once a symmetric sample in stage 1 and in its test epoch, and
-        # once an iteration in the refine stage and in its test epoch; the
-        # gather's backward once a sample of the stage-1 epoch (the refine
-        # stage runs PoseNet without gradients)
+        # once an iteration of every sample in the refine stage and in its
+        # test epoch (refine_loss computes ADD-S on every row and selects,
+        # as JAX's does); the gather's backward once a sample of the
+        # stage-1 epoch (the refine stage runs PoseNet without gradients)
         fwd = 3 * 2 * (n_tr + n_te)
         expect = counts(mlp_head=fwd, upconv3x3_prelu=fwd,
-                        nn_match=(s_tr + s_te) * (1 + ITERS),
+                        nn_match=s_tr + s_te + (n_tr + n_te) * ITERS,
                         gather_rows_backward=n_tr)
         print(f"  launches in Trainer.fit (2 epochs, {fit_s:.2f} s): {seen}")
         if seen != expect:
@@ -1414,7 +1461,9 @@ def fused_phase(train_ds, errs):
     from plr2_tpu_torch.train import FusedTrainer, make_fused_window_grads
     n = len(train_ds)
     s_n = sum(is_sym(train_ds, i) for i in range(n))
-    ftr = FusedTrainer(train_config(), device=DEVICE)
+    # the per-sample loop (graphs=False); the CUDA graph of a window is
+    # held against it in the train graphs phase
+    ftr = FusedTrainer(train_config(), device=DEVICE, graphs=False)
     state = ftr.init_state()
     reset_launch_counts()
     state, info = ftr.train_epoch(state, train_ds, torch.Generator().manual_seed(6))
@@ -1449,7 +1498,7 @@ def fused_phase(train_ds, errs):
         return max((float((a[k] - b[k]).norm() / b[k].norm().clamp(min=1e-30)), k)
                    for k in b)
 
-    fused_losses, _ = make_fused_window_grads(ftr.pipe, SYM_LIST, W)(
+    fused_losses, _ = make_fused_window_grads(ftr.pipe, SYM_LIST, W, graphs=False)(
         win, torch.Generator().manual_seed(9))
     torch.cuda.synchronize()
     g_fused = {k: p.grad.clone() for k, p in net.named_parameters()}
@@ -1474,7 +1523,8 @@ def fused_phase(train_ds, errs):
     canvas = win["img"].shape[1]
     check_kernels_at([(canvas, canvas)], errs, torch.Generator().manual_seed(10),
                      match=False)
-    return {"fused": seen}, {"ftr": ftr, "win": win, "epoch_s": info["seconds"]}
+    return {"fused": seen}, {"ftr": ftr, "win": win, "epoch_s": info["seconds"],
+                             "losses": info["losses"]}
 
 
 @phase("mixed")
@@ -1516,7 +1566,7 @@ def mixed_phase(errs):
                                    device=DEVICE, seed=0,
                                    dtype=torch.bfloat16 if dt_name == "bfloat16"
                                    else torch.float32)
-        btr = BatchTrainer(cfg, pipe=pipe)
+        btr = BatchTrainer(cfg, pipe=pipe, graphs=False)
         state = btr.init_state()
         if name == "mixed":
             reset_launch_counts()
@@ -1564,7 +1614,8 @@ def mixed_phase(errs):
     check_kernels_at([(c, c) for c in canvases], errs,
                      torch.Generator().manual_seed(14), "bf16", MIXED_BATCH,
                      match=False)
-    return {"mixed": seen}, {"btr": runs["btr"], "state": runs["state"], "ds": ds}
+    return {"mixed": seen}, {"btr": runs["btr"], "state": runs["state"], "ds": ds,
+                             "losses": runs["mixed"]}
 
 
 @phase("train entry timing")
@@ -1611,7 +1662,7 @@ def entry_timing_phase(trainer_out, fused_out, mixed_out):
         prof, wall, f"one per-sample stage-1 step (forward and backward) at "
         f"{tuple(sample.img.shape[:2])}", 8)
     ftr, win = fused_out["ftr"], fused_out["win"]
-    step = make_fused_accum_step(ftr.pipe, SYM_LIST, W, lr=LR)
+    step = make_fused_accum_step(ftr.pipe, SYM_LIST, W, lr=LR, graphs=False)
     gen = torch.Generator().manual_seed(12)
     step(win, gen)
     torch.cuda.synchronize()
@@ -1655,6 +1706,521 @@ def entry_timing_phase(trainer_out, fused_out, mixed_out):
           f"preset: 13 objects, 500 points; 8 train / 4 test samples): "
           f"{wall:.2f} s wall, process start included")
     return out
+
+
+def host_split(prof, wall, data_ms):
+    """Where one per-sample step's host time goes (module docstring, phase
+    20): the data path, the kernels' plain backward passes (the autograd
+    Functions of mlp_head and upconv3x3_prelu: host time with their
+    children, and their device time), and the rest of the step (Python,
+    dispatch and autograd) per launch; beside the device's busy time."""
+    from torch.autograd import DeviceType
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    n = sum(e.count for e in kernels)
+    bwd = [e for e in prof.key_averages()
+           if e.key.startswith("autograd::engine::evaluate_function: ")
+           and any(f in e.key for f in BACKWARD_FUNCTIONS)]
+    bwd_host = sum(e.cpu_time_total for e in bwd) / 1e3
+    bwd_dev = sum(e.device_time_total for e in bwd) / 1e3
+    split = {"data_ms": data_ms, "step_wall_ms": wall, "device_busy_ms": busy,
+             "launches": n, "backward_fn_host_ms": bwd_host,
+             "backward_fn_device_ms": bwd_dev,
+             "rest_host_us_per_launch": 1e3 * (wall - bwd_host) / max(n, 1)}
+    total = data_ms + wall
+    print(f"  host time of one per-sample stage-1 sample, {total:.3f} ms: data "
+          f"path {data_ms:.3f} ms ({100 * data_ms / total:.1f}%); the kernels' "
+          f"plain backward passes {bwd_host:.3f} ms of host time "
+          f"({100 * bwd_host / total:.1f}%; {bwd_dev:.3f} ms on the device); "
+          f"the rest of the step {wall - bwd_host:.3f} ms ({100 * (wall - bwd_host) / total:.1f}%: "
+          f"Python, dispatch and autograd, {split['rest_host_us_per_launch']:.1f} us "
+          f"a launch over {n} launches); device busy {busy:.3f} ms of the "
+          f"step's {wall:.3f} ms ({100 * busy / wall:.1f}%)")
+    return split
+
+
+def state_of(net):
+    """Gradients (where set) and BN buffers of `net`, cloned."""
+    return ({k: p.grad.clone() for k, p in net.named_parameters() if p.grad is not None},
+            bn_state(net))
+
+
+def same_state(what, a, b, losses_a, losses_b, tol):
+    """`a` and `b` (state_of) and their losses: bit-equal, or each gradient
+    within `tol` in relative L2 and the losses within `tol` relative.
+    Returns whether they were bit-equal; raises otherwise."""
+    (ga, bna), (gb, bnb) = a, b
+    if ga.keys() != gb.keys():
+        raise AssertionError(f"{what}: gradients of other parameters")
+    equal = (all(torch.equal(ga[k], gb[k]) for k in gb)
+             and all(torch.equal(bna[k], bnb[k]) for k in bnb)
+             and torch.equal(losses_a, losses_b))
+    rel = max(float((ga[k] - gb[k]).norm() / gb[k].norm().clamp(min=1e-30)) for k in gb)
+    rel_bn = max((float((bna[k].double() - bnb[k].double()).norm()
+                        / bnb[k].double().norm().clamp(min=1e-30)) for k in bnb),
+                 default=0.0)
+    dl = float(((losses_a - losses_b).abs() / losses_b.abs().clamp(min=1e-30)).max())
+    ok = equal or (rel <= tol and rel_bn <= tol and dl <= tol)
+    print(f"  {what}: {'bit-equal' if equal else 'not bit-equal'}; gradients max "
+          f"rel L2 {rel:.2e}, BN buffers {rel_bn:.2e}, losses max rel {dl:.2e} "
+          f"(tol {tol:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{what} differ")
+    return equal
+
+
+def alternating_ms(fns, reps):
+    """ms a call of each of `fns` (name -> callable), host clock around
+    synchronised runs, in turns a, b, b, a after one warm call each."""
+    for fn in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    times = {k: [] for k in fns}
+    for name in list(fns) + list(fns)[::-1]:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fns[name]()
+        torch.cuda.synchronize()
+        times[name].append((time.perf_counter() - t0) * 1e3 / reps)
+    return {k: sum(v) / len(v) for k, v in times.items()}
+
+
+def recorded_keys(graphs):
+    """The distinct keys that `graphs` (a GradientGraphs) is asked for (the
+    caller's key: stage, w, sym_slots, branch; and the batch's image
+    shape), and the card memory (MiB reserved, the allocator's cache
+    emptied around the call) that each call with a new key added."""
+    keys, grown, run = set(), [], graphs.run
+
+    def run_recorded(key, step, program, inputs):
+        k = (key, tuple(inputs["img"].shape))
+        if k in keys:
+            return run(key, step, program, inputs)
+        keys.add(k)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        r0 = torch.cuda.memory_reserved()
+        res = run(key, step, program, inputs)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        grown.append((torch.cuda.memory_reserved() - r0) / 2 ** 20)
+        return res
+    graphs.run = run_recorded
+    return keys, grown
+
+
+def key_space_epochs(name, kind, cfg, dtype, ds):
+    """Two epochs of the graphed trainer `kind` on `ds` from a seeded
+    pipeline, then one epoch of its eager twin from the same start:
+    samples/s of each (data path included), the graphs' distinct keys and
+    captures (a key captured twice fails) and the card memory the graphs
+    held (reserved memory released by dropping them)."""
+    from plr2_tpu_torch import DenseFusionPipeline
+    n, res = len(ds), {}
+    for graphed in (True, False):
+        pipe = DenseFusionPipeline(NUM_POINTS, NUM_OBJ, device=DEVICE, seed=0,
+                                   dtype=dtype)
+        tr = kind(cfg, pipe=pipe, device=DEVICE, graphs=graphed)
+        st = tr.init_state()
+        if graphed:
+            keys, grown = recorded_keys(tr.graphs)
+        for epoch in range(2 if graphed else 1):
+            caps0 = tr.graphs.captures if graphed else 0
+            st, info = tr.train_epoch(st, ds, torch.Generator().manual_seed(40 + epoch))
+            torch.cuda.synchronize()
+            tag = f"{'graph' if graphed else 'eager'}_epoch{epoch + 1}"
+            res[f"{tag}_samples_per_s"] = n / info["seconds"]
+            if graphed:
+                res[f"{tag}_captures"] = tr.graphs.captures - caps0
+        if graphed:
+            res["keys"], res["held"] = len(keys), tr.graphs.held
+            shapes = sorted((k[0][-1], k[1]) for k in keys)
+            if tr.graphs.captures != len(keys) or tr.graphs.held != len(keys):
+                raise AssertionError(f"{name}: {tr.graphs.captures} captures and "
+                                     f"{tr.graphs.held} graphs for {len(keys)} keys")
+            pipe.posenet.zero_grad(set_to_none=True)
+            torch.cuda.empty_cache()
+            before = torch.cuda.memory_reserved()
+            tr.graphs.clear()
+            torch.cuda.empty_cache()
+            res["graphs_mib"] = (before - torch.cuda.memory_reserved()) / 2 ** 20
+            res.update({f"capture{i + 1}_mib": m for i, m in enumerate(grown)})
+        del tr, st, pipe
+        torch.cuda.empty_cache()
+    print(f"  {name}, a full synthetic epoch of {n} samples at YCB width, twice: "
+          f"{res['keys']} distinct keys (branch, batch shape) {shapes}, captures "
+          f"{res['graph_epoch1_captures']} + {res['graph_epoch2_captures']}; "
+          f"{res['graph_epoch1_samples_per_s']:.1f} samples/s (captures included), then "
+          f"{res['graph_epoch2_samples_per_s']:.1f}; eager "
+          f"{res['eager_epoch1_samples_per_s']:.1f} samples/s; the {res['held']} graphs "
+          f"(one memory pool, one set of gradients) held {res['graphs_mib']:.1f} MiB, "
+          f"the captures in turn added {' + '.join(f'{m:.1f}' for m in grown)} MiB "
+          "(a later graph reuses what an earlier one freed where the blocks fit)")
+    return res
+
+
+@phase("train graphs")
+def train_graphs_phase(tkern, batch, trainer_out, fused_out, mixed_out):
+    """Phase 20: the training graphs (train/graphs.py) against the eager
+    paths they replace, the host-time split, remat and sym_slots."""
+    from torch.profiler import ProfilerActivity, profile
+    from plr2_tpu_torch import DenseFusionPipeline
+    from plr2_tpu_torch.losses.add_loss import loss_branch
+    from plr2_tpu_torch.ops import launch_counts, reset_launch_counts
+    from plr2_tpu_torch.parallel import TrainStep, make_train_step
+    from plr2_tpu_torch.parallel.data_parallel import count_symmetric
+    from plr2_tpu_torch.train import (BatchTrainer, FusedTrainer,
+                                      make_fused_accum_step,
+                                      make_fused_window_grads)
+    from plr2_tpu_torch.train.graphs import GradientGraphs
+    from plr2_tpu_torch.train.trainer import sample_batch
+    from plr2_tpu_torch.utils import Timer
+    out = {}
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+
+    # -- the host-time split of one eager per-sample stage-1 step --
+    ds = trainer_out["train_ds"]
+    stage1 = trainer_out["stage1"]
+    timer = Timer()
+    it = stage1._sample_iter(ds, torch.Generator().manual_seed(15), add_noise=True,
+                             shuffle=False, seed=0)
+    samples = []
+    for _ in range(WINDOW):
+        torch.cuda.synchronize()
+        with timer.section("data path"):
+            samples.append(next(it))
+            torch.cuda.synchronize()
+    data_ms = timer.totals["data path"] * 1e3 / WINDOW
+    print(f"  data path (get_raw -> raw_to_sample -> preprocess_crop, synchronised), "
+          f"{WINDOW} samples: {timer.summary()}")
+    step = stage1.stage_step(trainer_out["stage1_state"])
+    b, gen = sample_batch(samples[0]), torch.Generator().manual_seed(16)
+    step.accumulate(b, gen)
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        step.accumulate(b, gen)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    step.network.zero_grad(set_to_none=True)
+    split = host_split(prof, wall, data_ms)
+    out.update({f"eager_{k}": v for k, v in split.items()})
+
+    # -- a window as one CUDA graph against the per-sample loop --
+    ftr, win = fused_out["ftr"], fused_out["win"]
+    pipe, net = ftr.pipe, ftr.pipe.posenet
+    bn0 = bn_state(net)
+
+    def window_run(fn):
+        net.load_state_dict({**net.state_dict(), **bn0})
+        net.zero_grad(set_to_none=True)
+        losses, _ = fn(win, torch.Generator().manual_seed(9))
+        torch.cuda.synchronize()
+        return state_of(net), losses.clone()
+
+    eager, eager_l = window_run(make_fused_window_grads(pipe, SYM_LIST, W, graphs=False))
+    cache = GradientGraphs()
+    graphed = make_fused_window_grads(pipe, SYM_LIST, W, graphs=cache)
+    reset_launch_counts()
+    first, first_l = window_run(graphed)
+    at_capture = launch_counts()
+    second, second_l = window_run(graphed)
+    after_replay = launch_counts()
+    canvas = win["img"].shape[1]
+    same_state(f"window of {WINDOW} on a {canvas} px canvas, CUDA graph vs the per-sample "
+               f"loop (same samples, masks and BN state)", first, eager, first_l,
+               eager_l, FUSED_TOL)
+    if not same_state("the window graph replayed twice from one state", second, first,
+                      second_l, first_l, 0.0):
+        raise AssertionError("two replays of the window graph differ")
+    # the warm-up and the capture each run the program once: per sample 3 + 3
+    # PoseNet launches, the batch-1 mixed form's ADD-S match, the gather's
+    # backward; a replay calls no wrapper
+    expect = counts(mlp_head=2 * 3 * WINDOW, upconv3x3_prelu=2 * 3 * WINDOW,
+                    nn_match=2 * WINDOW, gather_rows_backward=2 * WINDOW)
+    print(f"  launch counters at the capture (warm-up + capture): {at_capture}; "
+          f"after a replay: {after_replay} (replays run no Python)")
+    if at_capture != expect or after_replay != at_capture:
+        raise AssertionError(f"window graph: expected counters {expect} at the "
+                             f"capture and no more after a replay, got "
+                             f"{at_capture} / {after_replay}")
+    net.load_state_dict({**net.state_dict(), **bn0})
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        graphed(win, torch.Generator().manual_seed(9))
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    seen = port_kernel_counts(prof, GRAPH_KERNELS)
+    want = {"head_sgemm_kernel": 12 * WINDOW, "upconv_sgemm_kernel": 3 * WINDOW,
+            "nn_kernel<": WINDOW, "gather_bwd_kernel": WINDOW}
+    print(f"  the port's kernels in the profile of one replay: {seen} (expected {want})")
+    if seen != want:
+        raise AssertionError(f"window replay ran kernels {seen}, expected {want}")
+    busy = top_device_kernels(prof, wall, f"one replayed window of {WINDOW} "
+                              "(mask draw and copy-in included)", 6)
+    out["graph_window_busy_ms"], out["graph_window_wall_ms"] = busy, wall
+    # the batch-1 mixed form runs the ADD-S match on every sample of the
+    # window, the asymmetric ones too: what that costs in a replay
+    from torch.autograd import DeviceType
+    out["graph_window_match_ms"] = sum(
+        e.self_device_time_total for e in prof.key_averages()
+        if e.device_type == DeviceType.CUDA and "nn_kernel<" in e.key) / 1e3
+    n_sym = sum(int(o) in SYM_LIST for o in win["obj"])
+    print(f"  the ADD-S match in the replay: {out['graph_window_match_ms']:.3f} ms "
+          f"over {WINDOW} launches ({n_sym} of the {WINDOW} samples symmetric)")
+    steps = {"eager": make_fused_accum_step(pipe, SYM_LIST, W, lr=LR, graphs=False),
+             "graph": make_fused_accum_step(pipe, SYM_LIST, W, lr=LR, graphs=cache)}
+    gens = {k: torch.Generator().manual_seed(12) for k in steps}
+    ms = alternating_ms({k: (lambda k=k: steps[k](win, gens[k])) for k in steps}, 3)
+    out["fused_window_eager_ms"], out["fused_window_graph_ms"] = ms["eager"], ms["graph"]
+    print(f"  FusedTrainer window of {WINDOW} f32 on a {canvas} px canvas (masks drawn, "
+          f"copy-in, gradients, Adam): eager {ms['eager']:.3f} ms, CUDA graph "
+          f"{ms['graph']:.3f} ms ({ms['eager'] / ms['graph']:.2f}x); per sample "
+          f"{ms['graph'] / WINDOW:.3f} ms beside the data path's {data_ms:.3f} ms")
+    del steps, cache, graphed
+    net.load_state_dict({**net.state_dict(), **bn0})
+    # after the graphs a sample's step is its share of a replayed window
+    # (masks, copy-in and Adam included); the data path is unchanged
+    step_ms_after = ms["graph"] / WINDOW
+    out["graph_sample_step_ms"] = step_ms_after
+    total = data_ms + step_ms_after
+    print(f"  host time of one sample after the graphs, {total:.3f} ms: data path "
+          f"{data_ms:.3f} ms ({100 * data_ms / total:.1f}%), its share of a "
+          f"replayed window {step_ms_after:.3f} ms ({100 * step_ms_after / total:.1f}%; "
+          f"before: data {data_ms:.3f} + step {split['step_wall_ms']:.3f} ms)")
+
+    # -- the refine stage's window (WINDOW // ITERS samples, FusedTrainer
+    # after the refine switch) as one graph against the per-sample loop --
+    rnet, rwin = pipe.refiner, {k: v[:WINDOW // ITERS] for k, v in win.items()}
+    nr = WINDOW // ITERS
+    r0 = {k: v.clone() for k, v in rnet.state_dict().items()}
+
+    def refine_run(fn):
+        rnet.load_state_dict(r0)
+        rnet.zero_grad(set_to_none=True)
+        losses, _ = fn(rwin)
+        torch.cuda.synchronize()
+        return state_of(rnet), losses.clone()
+
+    r_eager, rl_eager = refine_run(make_fused_window_grads(
+        pipe, SYM_LIST, W, refine_iterations=ITERS, graphs=False))
+    rgraphed = make_fused_window_grads(pipe, SYM_LIST, W, refine_iterations=ITERS,
+                                       graphs=GradientGraphs())
+    reset_launch_counts()
+    r_first, rl_first = refine_run(rgraphed)
+    at_capture = launch_counts()
+    r_second, rl_second = refine_run(rgraphed)
+    same_state(f"refine-stage window of {nr} ({ITERS} iterations), CUDA graph vs the "
+               "per-sample loop", r_first, r_eager, rl_first, rl_eager, FUSED_TOL)
+    if not same_state("the refine window graph replayed twice from one state", r_second,
+                      r_first, rl_second, rl_first, 0.0):
+        raise AssertionError("two replays of the refine window graph differ")
+    # warm-up and capture: per sample 3 + 3 PoseNet launches (eval, no
+    # backward) and one ADD-S match an iteration; a replay calls no wrapper
+    expect = counts(mlp_head=2 * 3 * nr, upconv3x3_prelu=2 * 3 * nr,
+                    nn_match=2 * ITERS * nr)
+    print(f"  refine window: launch counters at the capture {at_capture}, after a "
+          f"replay {launch_counts()}")
+    if at_capture != expect or launch_counts() != at_capture:
+        raise AssertionError(f"refine window graph: expected counters {expect} at the "
+                             f"capture and no more after a replay")
+    rnet.load_state_dict(r0)
+    del rgraphed
+
+    # -- FusedTrainer epochs: the graph against the per-sample loop --
+    n = len(ds)
+    ftr_g = FusedTrainer(train_config(), device=DEVICE)
+    st_g = ftr_g.init_state()
+    reset_launch_counts()
+    st_g, info_g = ftr_g.train_epoch(st_g, ds, torch.Generator().manual_seed(6))
+    torch.cuda.synchronize()
+    seen, caps = launch_counts(), ftr_g.graphs.captures
+    graph_launches = {"fused_graphs": seen}
+    expect = counts(mlp_head=2 * 3 * WINDOW * caps, upconv3x3_prelu=2 * 3 * WINDOW * caps,
+                    nn_match=2 * WINDOW * caps, gather_rows_backward=2 * WINDOW * caps)
+    print(f"  graphed FusedTrainer epoch ({n} samples, {caps} captures): launch "
+          f"counters {seen}")
+    if seen != expect:
+        raise AssertionError(f"graphed fused epoch: expected counters {expect}, got {seen}")
+    lg, le = torch.tensor(info_g["losses"]), torch.tensor(fused_out["losses"])
+    rel = float(((lg - le).abs() / le.abs()).max())
+    print(f"  graphed FusedTrainer epoch vs the per-sample loop's (phase fused, same "
+          f"seeds): per-sample losses {'bit-equal' if torch.equal(lg, le) else 'not bit-equal'}, "
+          f"max rel {rel:.2e} (tol {EPOCH_TOL['loss']:g})")
+    if rel > EPOCH_TOL["loss"]:
+        raise AssertionError("graphed FusedTrainer epoch differs from the eager one")
+    del ftr_g, st_g
+    torch.cuda.empty_cache()
+
+    # -- the mixed BatchTrainer step: graph vs eager, sym_slots auto vs 0 --
+    btr = mixed_out["btr"]
+    mpipe, mnet = btr.pipe, btr.pipe.posenet
+    msamples = list(btr._sample_iter(mixed_out["ds"], torch.Generator().manual_seed(13),
+                                     add_noise=True, shuffle=False, seed=0))
+    mbatch = btr._stack_eval(msamples[:MIXED_BATCH])
+    n_sym, auto = count_symmetric(mbatch, SYM_LIST), btr._sym_slots()
+    branch = {k: loss_branch(MIXED_BATCH, n_sym, False, SYM_LIST, k) for k in (auto, None)}
+    state0 = {k: v.clone() for k, v in mnet.state_dict().items()}
+    mcache = GradientGraphs()
+
+    def grads_of(fn):
+        mnet.load_state_dict(state0)
+        mnet.zero_grad(set_to_none=True)
+        loss, _ = fn()
+        torch.cuda.synchronize()
+        return state_of(mnet), loss.reshape(1).clone()
+
+    def eager_step(slots):
+        return TrainStep(mpipe, SYM_LIST, W, sym_slots=slots).accumulate(
+            mbatch, torch.Generator().manual_seed(9))
+
+    def graph_step(slots):
+        return mcache.gradients(TrainStep(mpipe, SYM_LIST, W, sym_slots=slots), mbatch,
+                                torch.Generator().manual_seed(9))
+
+    e_auto, el_auto = grads_of(lambda: eager_step(auto))
+    g_auto, gl_auto = grads_of(lambda: graph_step(auto))
+    g_again, gl_again = grads_of(lambda: graph_step(auto))
+    g_off, gl_off = grads_of(lambda: graph_step(None))
+    canvas_m = mbatch["img"].shape[1]
+    print(f"  mixed bf16 batch {MIXED_BATCH} on a {canvas_m} px canvas, {n_sym} "
+          f"symmetric samples; sym_slots auto = {auto} (the {branch[auto]} branch), "
+          f"0 = the {branch[None]} branch")
+    same_state("mixed step, CUDA graph vs eager (sym_slots auto)", g_auto, e_auto,
+               gl_auto, el_auto, FUSED_TOL)
+    if not same_state("mixed step graph replayed twice", g_again, g_auto, gl_again,
+                      gl_auto, 0.0):
+        raise AssertionError("two replays of the mixed step differ")
+    if not same_state("mixed step graph, sym_slots auto vs 0", g_auto, g_off,
+                      gl_auto, gl_off, 0.0):
+        raise AssertionError("sym_slots auto and 0 differ")
+    # the refine stage's batched step (BatchTrainer after the refine switch)
+    # in the same graph cache: PoseNet in eval, the refiner trained
+    rmnet = mpipe.refiner
+    rm0 = {k: v.clone() for k, v in rmnet.state_dict().items()}
+    rstep = TrainStep(mpipe, SYM_LIST, W, refine_iterations=ITERS, sym_slots=auto)
+
+    def refine_grads(fn):
+        rmnet.load_state_dict(rm0)
+        rmnet.zero_grad(set_to_none=True)
+        loss, _ = fn()
+        torch.cuda.synchronize()
+        return state_of(rmnet), loss.reshape(1).clone()
+
+    r_eager, rl_eager = refine_grads(lambda: rstep.accumulate(mbatch))
+    r_first, rl_first = refine_grads(lambda: mcache.gradients(rstep, mbatch))
+    r_second, rl_second = refine_grads(lambda: mcache.gradients(rstep, mbatch))
+    same_state(f"refine-stage mixed step batch {MIXED_BATCH}, CUDA graph vs eager",
+               r_first, r_eager, rl_first, rl_eager, FUSED_TOL)
+    if not same_state("refine mixed step graph replayed twice", r_second, r_first,
+                      rl_second, rl_first, 0.0):
+        raise AssertionError("two replays of the refine mixed step differ")
+    rmnet.load_state_dict(rm0)
+    mnet.load_state_dict(state0)
+    fns = {}
+    for name, slots, graphed_step in (("eager auto", auto, False), ("graph auto", auto, True),
+                                      ("graph 0", None, True)):
+        st = TrainStep(mpipe, SYM_LIST, W, lr=LR, sym_slots=slots)
+        g = torch.Generator().manual_seed(21)
+        if graphed_step:
+            fns[name] = (lambda st=st, g=g: (mcache.gradients(st, mbatch, g),
+                                             st.optimizer.step()))
+        else:
+            fns[name] = (lambda st=st, g=g: st(mbatch, g))
+    ms = alternating_ms(fns, 3)
+    mnet.load_state_dict(state0)
+    out.update({f"mixed_{k.replace(' ', '_')}_ms": v for k, v in ms.items()})
+    print(f"  mixed bf16 step batch {MIXED_BATCH} (Adam included): eager "
+          f"{ms['eager auto']:.3f} ms, CUDA graph {ms['graph auto']:.3f} ms "
+          f"({ms['eager auto'] / ms['graph auto']:.2f}x); graph with sym_slots 0 "
+          f"{ms['graph 0']:.3f} ms (auto saves {ms['graph 0'] - ms['graph auto']:.3f} ms)")
+    for name in ("eager auto", "graph auto"):
+        fns[name]()
+        torch.cuda.synchronize()
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            fns[name]()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        busy = top_device_kernels(prof, wall, f"one mixed step, {name}", 5)
+        out[f"mixed_{name.split()[0]}_busy_share"] = busy / wall
+    mnet.load_state_dict(state0)
+    del fns, mcache
+    bpipe = DenseFusionPipeline(NUM_POINTS, NUM_OBJ, device=DEVICE, seed=0,
+                                dtype=torch.bfloat16)
+    btr_g = BatchTrainer(train_config(dtype="bfloat16", batch_size=MIXED_BATCH), pipe=bpipe)
+    reset_launch_counts()
+    _, info = btr_g.train_epoch(btr_g.init_state(), mixed_out["ds"],
+                                torch.Generator().manual_seed(3))
+    torch.cuda.synchronize()
+    seen, caps = launch_counts(), btr_g.graphs.captures
+    graph_launches["mixed_graphs"] = seen
+    # each capture runs a step's program twice: 3 + 3 PoseNet launches, the
+    # gather's backward and, unless its batch has no symmetric sample, one
+    # ADD-S match
+    print(f"  graphed BatchTrainer epoch: launch counters {seen}")
+    if (seen != counts(mlp_head=6 * caps, upconv3x3_prelu=6 * caps,
+                       gather_rows_backward=2 * caps, nn_match=seen["nn_match"])
+            or not 0 < seen["nn_match"] <= 2 * caps):
+        raise AssertionError(f"graphed mixed epoch: launch counters {seen} for "
+                             f"{caps} captures")
+    lg, le = torch.tensor(info["losses"]), torch.tensor(mixed_out["losses"])
+    rel = float(((lg - le).abs() / le.abs()).max())
+    print(f"  graphed BatchTrainer epoch ({MIXED_STEPS} mixed steps, "
+          f"{btr_g.graphs.captures} captures) vs the eager epoch (phase mixed, same "
+          f"seeds): losses {'bit-equal' if torch.equal(lg, le) else 'not bit-equal'}, "
+          f"max rel {rel:.2e} (tol {EPOCH_TOL['loss']:g})")
+    if rel > EPOCH_TOL["loss"]:
+        raise AssertionError("graphed BatchTrainer epoch differs from the eager one")
+    del btr_g, bpipe
+    torch.cuda.empty_cache()
+
+    # -- the graphs' key space over a full synthetic epoch of each trainer --
+    kds = scene_dataset(KEY_FRAMES, 4)
+    for name, kind, cfg, dtype in (
+            ("FusedTrainer", FusedTrainer, train_config(), torch.float32),
+            ("BatchTrainer", BatchTrainer,
+             train_config(dtype="bfloat16", batch_size=MIXED_BATCH), torch.bfloat16)):
+        out.update({f"{name}_{k}": v
+                    for k, v in key_space_epochs(name, kind, cfg, dtype, kds).items()})
+    del kds
+
+    # -- remat at batch 32, f32, stage 1 --
+    tnet = tkern.posenet
+    t0_state = {k: v.clone() for k, v in tnet.state_dict().items()}
+    res, losses = {}, {}
+    for remat in (False, True):
+        tnet.load_state_dict(t0_state)
+        tnet.zero_grad(set_to_none=True)
+        st = make_train_step(tkern, SYM_LIST, W, LR, remat=remat, sym_slots=NUM_SYM)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        losses[remat] = st.accumulate(
+            batch, torch.Generator(device=DEVICE).manual_seed(3))[0].reshape(1)
+        torch.cuda.synchronize()
+        res[remat] = (state_of(tnet), (torch.cuda.max_memory_allocated() - base) / 2 ** 20)
+    tnet.zero_grad(set_to_none=True)
+    same_state(f"remat vs no remat, stage-1 step batch {TRAIN_BATCH} f32 (one "
+               "accumulate from one state)", res[True][0], res[False][0],
+               losses[True], losses[False], 0.0)
+    steps = {"plain": make_train_step(tkern, SYM_LIST, W, LR, sym_slots=NUM_SYM),
+             "remat": make_train_step(tkern, SYM_LIST, W, LR, remat=True,
+                                      sym_slots=NUM_SYM)}
+    ms = alternating_ms({k: (lambda k=k: steps[k](batch, torch.Generator(device=DEVICE)
+                                                  .manual_seed(22))) for k in steps}, 2)
+    tnet.load_state_dict(t0_state)
+    out.update(remat_peak_mib=res[True][1], plain_peak_mib=res[False][1],
+               remat_ms=ms["remat"], plain_step_ms=ms["plain"])
+    print(f"  remat, stage-1 step batch {TRAIN_BATCH} f32: peak memory above the "
+          f"state {res[False][1]:.1f} MiB without, {res[True][1]:.1f} MiB with "
+          f"({100 * (1 - res[True][1] / res[False][1]):.1f}% less); step "
+          f"{ms['plain']:.3f} ms without, {ms['remat']:.3f} ms with "
+          f"({ms['remat'] / ms['plain']:.2f}x)")
+    if not res[True][1] < res[False][1]:
+        raise AssertionError("remat did not lower the step's peak memory")
+    return graph_launches, out
 
 
 def _tf32_flags():
@@ -2012,7 +2578,7 @@ def determinism_phase(tkern, batch, trainer_out, fused_out, mixed_out, launches)
     from plr2_tpu_torch.train.trainer import sample_batch
     net = tkern.posenet
     state0 = {k: v.clone() for k, v in net.state_dict().items()}
-    step = dp.TrainStep(tkern, SYM_LIST, W)
+    step = dp.TrainStep(tkern, SYM_LIST, W, sym_slots=NUM_SYM)
 
     def one_step():
         step.accumulate(batch, torch.Generator(device=DEVICE).manual_seed(3))
@@ -2091,7 +2657,8 @@ def determinism_phase(tkern, batch, trainer_out, fused_out, mixed_out, launches)
                      .index_add_(0, rows, flat), 20)
     bound = gather.bytes_moved(TRAIN_BATCH, NUM_POINTS, hw, 64, 4) / HBM_BYTES_PER_S * 1e3
     by_path = {pth: launches[pth]["gather_rows_backward"] for pth in (
-        "train_stage1", "train_refine", "trainer", "fused", "mixed")}
+        "train_stage1", "train_refine", "trainer", "fused", "mixed",
+        "fused_graphs", "mixed_graphs")}
     print(f"  gather_rows_backward f32 (stable sort + the segment kernel, dy "
           f"zeroed): {k_ms:.4f} ms, plain (index_add_ by atomics) {p_ms:.4f} "
           f"ms, library index_add_ {lib_ms:.4f} ms, bound {bound:.4f} ms "
@@ -2119,7 +2686,7 @@ def determinism_phase(tkern, batch, trainer_out, fused_out, mixed_out, launches)
 
     from plr2_tpu_torch.train import make_fused_window_grads
     ftr, win = fused_out["ftr"], fused_out["win"]
-    window = make_fused_window_grads(ftr.pipe, SYM_LIST, W)
+    window = make_fused_window_grads(ftr.pipe, SYM_LIST, W, graphs=False)
 
     def fused():
         return window(win, torch.Generator().manual_seed(9))[0]
@@ -2128,7 +2695,7 @@ def determinism_phase(tkern, batch, trainer_out, fused_out, mixed_out, launches)
     msamples = list(btr._sample_iter(mixed_out["ds"], torch.Generator().manual_seed(13),
                                      add_noise=True, shuffle=False, seed=0))
     mbatch = btr._stack_eval(msamples[:MIXED_BATCH])
-    mstep = dp.TrainStep(btr.pipe, SYM_LIST, W)
+    mstep = dp.TrainStep(btr.pipe, SYM_LIST, W, sym_slots=btr._sym_slots())
 
     def mixed():
         return mstep.accumulate(mbatch, torch.Generator().manual_seed(9))[0]
@@ -2152,7 +2719,7 @@ def determinism_phase(tkern, batch, trainer_out, fused_out, mixed_out, launches)
     # step at batch 32 with it (bit-equal or fail) and without it (for the
     # record), then the step's ms with it and without it, in turns
     def step32():
-        return dp.TrainStep(tkern, SYM_LIST, W).accumulate(
+        return dp.TrainStep(tkern, SYM_LIST, W, sym_slots=NUM_SYM).accumulate(
             batch, torch.Generator(device=DEVICE).manual_seed(3))[0][None]
     orig = dp.deterministic_convs
     dp.deterministic_convs = contextlib.nullcontext
@@ -2170,7 +2737,7 @@ def determinism_phase(tkern, batch, trainer_out, fused_out, mixed_out, launches)
         raise AssertionError(f"determinism: two runs of the stage-1 step differ: "
                              f"{strict[:5]}")
     cost = {"on": [], "off": []}
-    step1 = dp.make_train_step(tkern, SYM_LIST, W, LR)
+    step1 = dp.make_train_step(tkern, SYM_LIST, W, LR, sym_slots=NUM_SYM)
     for label in ("on", "off", "off", "on"):
         orig = dp.deterministic_convs
         if label == "off":
@@ -2482,12 +3049,12 @@ def recorded_conf(pipe, fn):
     return out, torch.cat(seen)
 
 
-def port_kernel_counts(prof):
-    """Launches by CUDA kernel of the port's head and decoder kernels in a
-    profile (f32: head_sgemm_kernel once a layer; bf16: one
-    mlp_head_wgmma_kernel a ladder)."""
+def port_kernel_counts(prof, names=(*TC_KERNELS.values(), *F32_KERNELS.values())):
+    """Launches by CUDA kernel of the port's kernels `names` (by a substring
+    of their names; by default the head and decoder kernels: f32
+    head_sgemm_kernel once a layer, bf16 one mlp_head_wgmma_kernel a
+    ladder) in a profile."""
     from torch.autograd import DeviceType
-    names = (*TC_KERNELS.values(), *F32_KERNELS.values())
     out = {}
     for e in prof.key_averages():
         if e.device_type == DeviceType.CUDA:
@@ -2825,6 +3392,10 @@ def main():
     for more in (trainer_launches, fused_launches, mixed_launches):
         launches.update(more)
     entry_times = entry_timing_phase(trainer_out, fused_out, mixed_out)
+    graph_launches, graph_times = train_graphs_phase(tkern, batch, trainer_out,
+                                                     fused_out, mixed_out)
+    launches.update(graph_launches)
+    torch.cuda.empty_cache()
     gather_entry, det = determinism_phase(tkern, batch, trainer_out, fused_out,
                                           mixed_out, launches)
     del trainer_out, fused_out, mixed_out
@@ -2846,6 +3417,7 @@ def main():
           f"frames/s {json.dumps({k: round(v, 1) for k, v in frames.items()})}, "
           f"train {json.dumps({k: round(v, 3) for k, v in train_times.items()})}, "
           f"train entry {json.dumps({k: round(v, 3) for k, v in entry_times.items()})}, "
+          f"train graphs {json.dumps({k: round(v, 4) for k, v in graph_times.items()})}, "
           f"determinism {json.dumps({k: round(v, 3) for k, v in det.items()})}, "
           f"eval samples/s {json.dumps({k: round(v, 2) for k, v in eval_rates.items()})}, "
           f"eval CLI walls s {json.dumps({k: round(v, 2) for k, v in eval_walls.items()})}, "

@@ -19,8 +19,9 @@ Fields that the port reads differently:
   (`DenseFusionPipeline(dtype=torch.bfloat16)`).
 - `TrainConfig.workers > 0`, `PipelineConfig.data_parallel > 1` and
   `model_parallel > 1` raise NotImplementedError in the trainers.
-- `TrainConfig.sym_slots` is a no-op: the port's ADD-S runs on the
-  symmetric rows alone, which is what every JAX setting computes.
+- `TrainConfig.sym_slots` sizes `BatchTrainer`'s ADD-S compaction as in
+  JAX; the port picks the loss's branch on the host from the samples'
+  object ids, where JAX picks it on the device.
 """
 
 from __future__ import annotations
@@ -90,8 +91,10 @@ class TrainConfig:
     # one accumulation window per optimizer step, stacked on a shared
     # canvas (train/fused_trainer.py); ignored in --batched mode
     fused_accum: bool = False
-    # the JAX package's ADD-S compaction slots; a no-op in the port, whose
-    # ADD-S runs on the symmetric rows alone (same result)
+    # batched-mode mixed-batch ADD-S compaction (losses/add_loss.py
+    # max_sym_slots): >0 = the chamfer of a batch with at most this many
+    # symmetric samples runs on that many compacted slots (exact), -1 =
+    # auto-size from the symmetric-object fraction, 0 = off
     sym_slots: int = -1
     # run the per-epoch test loop batched (batch_size samples per call on
     # a shared snapped canvas, cycle-padded tail) in Trainer and

@@ -196,4 +196,6 @@ def stack_samples(samples: List[Sample], crop: int) -> Sample:
         target=torch.stack([s.target for s in samples]),
         model_points=torch.stack([s.model_points for s in samples]),
         idx=torch.stack([s.idx for s in samples]),
+        obj=(None if any(s.obj is None for s in samples)
+             else tuple(s.obj for s in samples)),
     )

@@ -32,7 +32,7 @@ the constants they need are cached on each device (`_constant`).
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple, Optional, Tuple, Union
+from typing import Any, NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -48,15 +48,32 @@ JITTER = (0.2, 0.2, 0.2, 0.05)
 _M32 = 0xFFFFFFFF
 
 
-class Sample(NamedTuple):
-    """The reference's per-sample 6-tuple (channel-last image)."""
-
+class _SampleTensors(NamedTuple):
     points: torch.Tensor        # (N, 3) backprojected cloud
     choose: torch.Tensor        # (N,) flat indices into the crop
     img: torch.Tensor           # (H, W, 3) normalised crop
     target: torch.Tensor        # (M, 3) GT-posed model points
     model_points: torch.Tensor  # (M, 3)
     idx: torch.Tensor           # () object index
+
+
+class Sample(_SampleTensors):
+    """The reference's per-sample 6-tuple (channel-last image).
+
+    `obj` is the object index on the host (an int; a tuple of ints for a
+    stack of samples), so a trainer picks the loss's ADD-S branch without
+    reading the device; None where it is not known. It is an attribute
+    beside the tuple, not a field: a Sample iterates, compares and
+    unpacks as its six tensors, and `_replace` leaves it None."""
+
+    obj: Any = None
+
+    def __new__(cls, points, choose, img, target, model_points, idx,
+                obj: Any = None):
+        self = super().__new__(cls, points, choose, img, target,
+                               model_points, idx)
+        self.obj = obj
+        return self
 
 
 class Draws(NamedTuple):
@@ -312,7 +329,7 @@ def preprocess_crop(color_crop: torch.Tensor,   # (H, W, 3) uint8
                               target_t.float()) + add_t
     return Sample(points=cloud, choose=choose, img=_normalize01(img01),
                   target=target, model_points=model_points.float(),
-                  idx=torch.tensor(int(obj_idx), device=dev))
+                  idx=torch.tensor(int(obj_idx), device=dev), obj=int(obj_idx))
 
 
 def preprocess_crops(color_crops: torch.Tensor,   # (K, H, W, 3) uint8

@@ -13,12 +13,17 @@ plr2_tpu/losses/add_loss.py `pose_loss` (upstream lib/loss.py
   * (new_points, new_target) re-centred by the best-confidence hypothesis
     (first index on ties), detached, for the refiner.
 
-The ADD-S term runs `ops.knn.nn_distance` on the symmetric rows only,
-gathered by index, in one kernel launch for all of them. Every JAX branch
-(`add_all`, `adds_all`, `mixed`, `compact`) computes exactly this: ADD-S
-on symmetric rows, ADD elsewhere. So the port needs no `max_sym_slots`
-knob: the JAX knob chooses how much of the batch the chamfer runs on, and
-here it runs on the symmetric rows and nothing else.
+The ADD-S branch is JAX's four-way choice (`add_all`, `adds_all`,
+`mixed`, `compact`), every one of which computes ADD-S on symmetric rows
+and ADD elsewhere. JAX picks the branch on the device; the port picks it
+on the host, from the batch's count of symmetric samples `n_sym` (the
+caller knows its samples' object ids: `Sample.obj`), so no shape depends
+on the data and nothing reads the device. Without `n_sym` the branch is
+`mixed`: ADD and ADD-S on every row, then a select. `compact` (JAX's
+`max_sym_slots`) runs the ADD-S match on K static slots, filled by a
+stable argsort of the symmetric rows first, and copies the K results back
+over the paired ADD. Each branch is one fixed-shape program, which is what
+a CUDA graph can capture.
 
 All coordinate math is broadcast elementwise products and sums in f32,
 never `einsum` or `matmul`, so none of it can go through TF32.
@@ -26,7 +31,7 @@ never `einsum` or `matmul`, so none of it can go through TF32.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 
@@ -80,35 +85,77 @@ def paired_add_mean(rot, t, model_points, target):
             * positive).mean(-1)
 
 
-def symmetric_rows(idx: torch.Tensor, sym_list: Sequence[int]) -> torch.Tensor:
-    """Indices of the batch rows whose object is in `sym_list`."""
-    sym = torch.as_tensor(tuple(sym_list), dtype=idx.dtype, device=idx.device)
-    return torch.nonzero((idx[:, None] == sym[None, :]).any(-1)).flatten()
+def is_symmetric(idx: torch.Tensor, sym_list: Sequence[int]) -> torch.Tensor:
+    """(B,) bool: the rows whose object is in `sym_list` (compared with
+    Python ints: no host constant to copy, so a graph can capture it)."""
+    out = torch.zeros(idx.shape, dtype=torch.bool, device=idx.device)
+    for s in sym_list:
+        out = out | (idx == int(s))
+    return out
+
+
+def loss_branch(batch: int, n_sym: Optional[int], refine: bool,
+                sym_list: Sequence[int],
+                max_sym_slots: Optional[int] = None) -> str:
+    """JAX's case select of `pose_loss`, on host values: `n_sym` is the
+    batch's count of symmetric samples, None where the caller does not
+    know it (then `mixed`, which is right for any batch)."""
+    if refine or len(sym_list) == 0 or n_sym == 0:
+        return "add_all"
+    if n_sym is None:
+        return "mixed"
+    if n_sym == batch:
+        return "adds_all"
+    if max_sym_slots is not None and 0 < max_sym_slots < batch \
+            and n_sym <= max_sym_slots:
+        return "compact"
+    return "mixed"
+
+
+def _adds_mean(pred_r, pred_t, points, model_points, target, use_kernels):
+    """ADD-S per hypothesis (R, N): one match launch over the R rows."""
+    pred, _, _ = transform_hypotheses(pred_r, pred_t, points, model_points)
+    return nn_distance(pred, target, use_kernel=use_kernels).mean(-1)
 
 
 def pose_loss(pred_r, pred_t, pred_c, target, model_points, idx, points,
               w: float, refine: bool, sym_list: Sequence[int],
-              use_kernels: bool = True) -> PoseLossOut:
+              use_kernels: bool = True, max_sym_slots: Optional[int] = None,
+              n_sym: Optional[int] = None) -> PoseLossOut:
     """pred_r (B,N,4), pred_t (B,N,3), pred_c (B,N,1), target (B,M,3),
     model_points (B,M,3), idx (B,), points (B,N,3) -> PoseLossOut.
-    `use_kernels=False` runs the match through the kernel's plain twin."""
+    `n_sym` (a host int) and `max_sym_slots` pick the ADD-S branch
+    (`loss_branch`); `use_kernels=False` runs the match through the
+    kernel's plain twin."""
     # metric math is f32 whatever the network's dtype
     pred_r, pred_t, pred_c, target, model_points, points = (
         x.float() for x in (pred_r, pred_t, pred_c, target, model_points,
                             points))
+    b = pred_r.shape[0]
     rot = quat_to_matrix_df(normalize_quaternion(pred_r))  # (B, N, 3, 3)
     t_cand = points + pred_t
     c = pred_c[..., 0]
 
-    dis = paired_add_mean(rot, t_cand, model_points, target)  # (B, N)
-    if not refine and len(sym_list) > 0:
-        rows = symmetric_rows(idx, sym_list)
-        if rows.numel() > 0:
-            pred_s, _, _ = transform_hypotheses(
-                pred_r[rows], pred_t[rows], points[rows], model_points[rows])
-            adds = nn_distance(pred_s, target[rows],
-                               use_kernel=use_kernels).mean(-1)  # (S, N)
-            dis = dis.index_copy(0, rows, adds)
+    branch = loss_branch(b, n_sym, refine, sym_list, max_sym_slots)
+    if branch == "adds_all":
+        dis = _adds_mean(pred_r, pred_t, points, model_points, target,
+                         use_kernels)
+    else:
+        dis = paired_add_mean(rot, t_cand, model_points, target)  # (B, N)
+    if branch == "mixed":
+        adds = _adds_mean(pred_r, pred_t, points, model_points, target,
+                          use_kernels)
+        dis = torch.where(is_symmetric(idx, sym_list)[:, None], adds, dis)
+    elif branch == "compact":
+        # the symmetric rows first (stable), then the rest, cut at K slots
+        is_sym = is_symmetric(idx, sym_list)
+        prio = (~is_sym).long() * b + torch.arange(b, device=idx.device)
+        order = torch.argsort(prio, stable=True)[:max_sym_slots]
+        rows = [x.index_select(0, order) for x in
+                (pred_r, pred_t, points, model_points, target, is_sym, dis)]
+        adds = _adds_mean(*rows[:5], use_kernels)
+        upd = torch.where(rows[5][:, None], adds, rows[6])
+        dis = dis.index_copy(0, order, upd)
 
     c_safe = torch.clamp(c, min=1e-12)
     loss = (dis * c - w * torch.log(c_safe)).mean()

@@ -8,8 +8,10 @@ The refiner predicts one pose delta per sample in the re-centred frame:
                                                always, there is no refine
                                                guard here)
 and emits (new_points, new_target) re-centred by the delta, detached, for
-the next iteration. No confidence term. The ADD-S rows go through one
-`nn_distance` launch, gathered by index as in `pose_loss`.
+the next iteration. No confidence term. As in the JAX function, ADD and
+ADD-S are computed on every row (ADD-S in one `nn_distance` launch) and
+`is_sym` selects: fixed shapes, nothing read back to the host, so a CUDA
+graph can capture it.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ import torch
 
 from plr2_tpu_torch.geometry.quaternion import (normalize_quaternion,
                                                 quat_to_matrix_df)
-from plr2_tpu_torch.losses.add_loss import rotate_rows, symmetric_rows
+from plr2_tpu_torch.losses.add_loss import is_symmetric, rotate_rows
 from plr2_tpu_torch.ops.knn import nn_distance, safe_norm
 
 
@@ -43,11 +45,10 @@ def refine_loss(pred_r, pred_t, target, model_points, idx, points,
     pred = rotate_rows(model_points, rot.transpose(-1, -2)) + t[:, None, :]
 
     dis = safe_norm(pred - target).mean(-1)  # (B,)
-    rows = symmetric_rows(idx, sym_list) if len(sym_list) > 0 else None
-    if rows is not None and rows.numel() > 0:
-        adds = nn_distance(pred[rows][:, None], target[rows],
+    if len(sym_list) > 0:
+        adds = nn_distance(pred[:, None], target,
                            use_kernel=use_kernels).mean((-2, -1))
-        dis = dis.index_copy(0, rows, adds)
+        dis = torch.where(is_symmetric(idx, sym_list), adds, dis)
 
     with torch.no_grad():
         new_points = rotate_rows(points - t[:, None, :], rot)

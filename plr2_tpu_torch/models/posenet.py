@@ -15,8 +15,10 @@ upstream-format state dicts load with `strict=True`.
 
 PoseNet's train mode (`.train()`, the JAX `train=True`) is train-mode
 BatchNorm in the ResNet and the PSP channel dropouts, whose masks come
-from `generator`; the heads keep their kernel, which has a backward
-(`ops.mlp_head.mlp_head` is an autograd Function).
+from `generator` or are passed in (`masks`, drawn beforehand by
+`PSPNet.draw_dropout_masks`); the heads keep their kernel, which has a backward
+(`ops.mlp_head.mlp_head` is an autograd Function). Under
+`models.remat.rematerialised` the forward checkpoints its stages.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from plr2_tpu_torch.models.pspnet import ModifiedResnet
+from plr2_tpu_torch.models.remat import stage
 from plr2_tpu_torch.ops.mlp_head import mlp_head, mlp_head_plain
 
 
@@ -86,6 +89,7 @@ class PoseNet(nn.Module):
         super().__init__()
         self.num_obj = num_obj
         self.use_kernels = use_kernels
+        self.remat = False  # models/remat.py `rematerialised`
         self.cnn = ModifiedResnet(emb_dim, use_kernels)
         self.feat = PoseNetFeat()
         for tag, od in self.HEADS:
@@ -94,10 +98,10 @@ class PoseNet(nn.Module):
             setattr(self, f"conv3_{tag}", nn.Conv1d(256, 128, 1))
             setattr(self, f"conv4_{tag}", nn.Conv1d(128, num_obj * od, 1))
 
-    def forward(self, img, cloud, choose, obj, generator=None):
+    def forward(self, img, cloud, choose, obj, generator=None, masks=None):
         dt = self.conv1_r.weight.dtype
-        emb = self.cnn(img.to(dt), choose, generator)
-        feat = self.feat(cloud.to(dt), emb)
+        emb = self.cnn(img.to(dt), choose, generator, masks)
+        feat = stage(self, self.feat, cloud.to(dt), emb)
         b, n, c = feat.shape
         x2d = feat.reshape(b * n, c)
         head = mlp_head if self.use_kernels else mlp_head_plain

@@ -19,9 +19,13 @@ plr2_tpu/models/pspnet.py (the `use_pallas=True` configuration).
   0.15, 0.15 after psp, up_1 and up_2; flax `nn.Dropout` with
   `broadcast_dims=(1, 2)`, i.e. one keep/drop draw per sample and channel,
   kept values scaled by 1/(1-p)), with masks drawn from the
-  `torch.Generator` the caller passes in, never from the global RNG. They
-  are the identity in eval mode. `dropout_rates` may be set to zeros to
-  switch them off (the parity tests do).
+  `torch.Generator` the caller passes in, never from the global RNG, or
+  passed in as tensors (`draw_dropout_masks` draws them on the host with
+  the same calls, so the two give the same forward). Masks drawn before
+  the forward are what a CUDA graph and a rematerialised forward need: a
+  draw inside a capture would be frozen into the graph, and a recompute
+  would draw again. They are the identity in eval mode. `dropout_rates`
+  may be set to zeros to switch them off (the parity tests do).
 
 The trunk runs NCHW tensors in channels_last memory, so the PSP output
 is already NHWC in memory and the permute before the decoder costs no
@@ -31,13 +35,14 @@ copy. Attribute names follow upstream lib/pspnet.py.
 from __future__ import annotations
 
 import functools
-from typing import Sequence
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from plr2_tpu_torch.models.remat import stage
 from plr2_tpu_torch.models.resnet import DilatedResNet18
 from plr2_tpu_torch.ops.gather import gather_rows
 from plr2_tpu_torch.ops.upconv import upconv3x3_prelu, upconv3x3_prelu_plain
@@ -154,17 +159,27 @@ class PSPUpsample(nn.Module):
 
 
 def channel_dropout(x: torch.Tensor, rate: float,
-                    generator: torch.Generator) -> torch.Tensor:
+                    generator: Optional[torch.Generator],
+                    keep: Optional[torch.Tensor] = None) -> torch.Tensor:
     """NHWC x: each (sample, channel) kept with probability 1 - rate and
-    scaled by 1/(1 - rate), or zeroed (flax Dropout, broadcast over H, W)."""
+    scaled by 1/(1 - rate), or zeroed (flax Dropout, broadcast over H, W).
+    `keep` (B, 1, 1, C) bool is a mask drawn beforehand
+    (`draw_dropout_masks`); without it the mask is drawn from `generator`."""
     if rate <= 0.0:
         return x
+    keep_prob = 1.0 - rate
+    if keep is None:
+        keep = _draw_keep(x.shape[0], x.shape[3], rate, generator)
+    return torch.where(keep.to(x.device), x / keep_prob, torch.zeros_like(x))
+
+
+def _draw_keep(batch: int, channels: int, rate: float,
+               generator: Optional[torch.Generator]) -> torch.Tensor:
     if generator is None:
         raise ValueError("train-mode dropout needs an explicit torch.Generator")
-    keep_prob = 1.0 - rate
-    u = torch.rand((x.shape[0], 1, 1, x.shape[3]), generator=generator,
-                   device=generator.device).to(x.device)
-    return torch.where(u < keep_prob, x / keep_prob, torch.zeros_like(x))
+    u = torch.rand((batch, 1, 1, channels), generator=generator,
+                   device=generator.device)
+    return u < 1.0 - rate
 
 
 class PSPNet(nn.Module):
@@ -179,18 +194,34 @@ class PSPNet(nn.Module):
         self.final = nn.Sequential(nn.Conv2d(64, emb_dim, 1),
                                    nn.LogSoftmax(dim=1))
         self.dropout_rates = (0.3, 0.15, 0.15)  # drop_1, drop_2a, drop_2b
+        self.remat = False  # models/remat.py `rematerialised`
 
-    def forward(self, img, choose, generator=None):
+    def draw_dropout_masks(self, batch: int, generator: Optional[torch.Generator]
+                           ) -> Tuple[Optional[torch.Tensor], ...]:
+        """The keep masks of drop_1, drop_2a and drop_2b for `batch`
+        samples, (batch, 1, 1, C) bool on the generator's device (None for
+        a rate of 0), drawn in the order and shapes that the forward draws
+        them from `generator`."""
+        channels = (self.psp.bottleneck.out_channels,
+                    self.up_1.conv[1].out_channels,
+                    self.up_2.conv[1].out_channels)
+        return tuple(_draw_keep(batch, c, rate, generator) if rate > 0 else None
+                     for c, rate in zip(channels, self.dropout_rates))
+
+    def forward(self, img, choose, generator=None, masks=None):
         """img (B, H, W, 3) NHWC; choose (B, N) flat pixel indices ->
-        the gathered log-softmax embedding (B, N, emb_dim). `generator`
-        draws the dropout masks in train mode."""
+        the gathered log-softmax embedding (B, N, emb_dim). In train mode
+        the dropout masks are `masks` (`draw_dropout_masks`'s), or drawn
+        from `generator`."""
         x = img.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
-        p = self.psp(self.feats(x)).permute(0, 2, 3, 1)  # NHWC
-        for up, rate in zip((self.up_1, self.up_2, self.up_3),
-                            self.dropout_rates):
+        p = stage(self, self.psp, stage(self, self.feats, x)).permute(0, 2, 3, 1)
+        if self.training and masks is None:
+            masks = self.draw_dropout_masks(img.shape[0], generator)
+        for i, (up, rate) in enumerate(zip((self.up_1, self.up_2, self.up_3),
+                                           self.dropout_rates)):
             if self.training:
-                p = channel_dropout(p, rate, generator)
-            p = up(p)
+                p = channel_dropout(p, rate, None, masks[i])
+            p = stage(self, up, p)
         b, h, w, c = p.shape
         g = gather_rows(p.reshape(b, h * w, c), choose,
                         self.up_1.use_kernels)
@@ -206,5 +237,5 @@ class ModifiedResnet(nn.Module):
         super().__init__()
         self.model = PSPNet(emb_dim=emb_dim, use_kernels=use_kernels)
 
-    def forward(self, img, choose, generator=None):
-        return self.model(img, choose, generator)
+    def forward(self, img, choose, generator=None, masks=None):
+        return self.model(img, choose, generator, masks)

@@ -12,6 +12,8 @@ downsample.{0,1}).
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -28,10 +30,15 @@ class BatchNorm2d(nn.BatchNorm2d):
     variance, a relative gap of 1/(n-1) at n = B*H*W values per channel.
     Eval mode is torch's. Under mixed precision (x bf16, parameters and
     statistics f32) both modes compute in f32 and return x's dtype.
+    Within `frozen_statistics` train mode leaves the running statistics
+    alone: a rematerialised forward (`torch.utils.checkpoint`) runs the
+    layer a second time, and JAX's functional `jax.checkpoint` updates
+    them once.
     """
 
     def __init__(self, num_features: int):
         super().__init__(num_features, eps=1e-5, momentum=0.1)
+        self.update_statistics = True
 
     def forward(self, x):
         if x.dtype != self.weight.dtype:
@@ -44,6 +51,12 @@ class BatchNorm2d(nn.BatchNorm2d):
     def _forward(self, x):
         if not self.training:
             return super().forward(x)
+        if self.update_statistics:
+            self._update(x)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
+                            self.eps)
+
+    def _update(self, x):
         with torch.no_grad():
             xf = x.to(torch.promote_types(x.dtype, torch.float32))
             mean = xf.mean((0, 2, 3))
@@ -51,8 +64,27 @@ class BatchNorm2d(nn.BatchNorm2d):
             self.running_mean.mul_(0.9).add_(0.1 * mean)
             self.running_var.mul_(0.9).add_(0.1 * var)
             self.num_batches_tracked.add_(1)
-        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
-                            self.eps)
+
+
+def batchnorm_buffers(module: nn.Module) -> list:
+    """The running statistics (and counters) of every `BatchNorm2d` of
+    `module`, in module order."""
+    return [b for m in module.modules() if isinstance(m, BatchNorm2d)
+            for b in m.buffers(recurse=False)]
+
+
+@contextlib.contextmanager
+def frozen_statistics(module: nn.Module):
+    """Within the block no `BatchNorm2d` of `module` updates its running
+    statistics."""
+    layers = [m for m in module.modules() if isinstance(m, BatchNorm2d)]
+    for m in layers:
+        m.update_statistics = False
+    try:
+        yield
+    finally:
+        for m in layers:
+            m.update_statistics = True
 
 
 class BasicBlock(nn.Module):

@@ -1,15 +1,23 @@
 """One optimizer step of DenseFusion training on one device, the port of
 plr2_tpu/parallel/data_parallel.py `make_train_step` and `adam_update`
-(single device: `mesh=None`, `remat=False`; the mesh and rematerialisation
-wait for the parallel layer).
+(single device: `mesh=None`; the mesh waits for the parallel layer).
 
 Two stages, as in the JAX package (reference stage semantics):
 
 - stage 1 (`refine_iterations == 0`): PoseNet in train mode (train-mode
   BatchNorm whose running statistics are updated, the PSP channel
-  dropouts drawn from the step's generator); loss = `pose_loss(refine=
-  False)`; Adam on PoseNet's parameters. Reported `dis` is the batch mean
-  of the best-hypothesis distance.
+  dropouts drawn from the step's generator on the host before the
+  forward); loss = `pose_loss(refine=False, max_sym_slots=sym_slots)`
+  with the ADD-S branch picked from the batch's host object ids (`obj`,
+  where the batch carries them; `mixed` where it does not), by one rule
+  eagerly and in a graph: a batch with symmetric and other samples runs
+  `compact` where it has at most `sym_slots` symmetric samples, else
+  `mixed`, as in JAX. Adam on PoseNet's
+  parameters. Reported `dis` is the batch mean of the best-hypothesis
+  distance. With `remat` PoseNet's forward is rematerialised in the
+  backward, stage by stage (`models/remat.py`; JAX's `jax.checkpoint`):
+  the recompute leaves BatchNorm's running statistics alone, so they are
+  updated once.
 - refine stage (`refine_iterations > 0`): PoseNet frozen in eval mode
   under `no_grad`; `pose_loss(refine=True)` re-centres cloud and target by
   the best hypothesis; `refine_iterations` PoseRefineNet calls on the
@@ -33,6 +41,16 @@ cuDNN restricted to deterministic algorithms (`deterministic_convs`), so
 two runs of one step from one state give bit-equal gradients. The step runs on the
 pipeline's device ("cuda" unless the pipeline was built with
 device="cpu"); the batch is moved there.
+
+`program` is the same computation in the form a CUDA graph captures
+(`train/graphs.py`): it reads tensors that are already on the device
+(dropout masks included), zeroes the existing `.grad` tensors in place
+rather than freeing them, picks no branch from the data, and returns its
+loss and `dis` as tensors. For a window (`window=True`, the fused
+trainer's) it runs the samples one after another at batch 1, each in the
+`mixed` ADD-S form, so one program serves every pattern of symmetric
+samples. It runs eagerly on any device, which is how the CPU tests hold
+it against `accumulate`.
 """
 
 from __future__ import annotations
@@ -44,9 +62,29 @@ import torch
 
 from plr2_tpu_torch.losses.add_loss import pose_loss
 from plr2_tpu_torch.losses.refine_loss import refine_loss
+from plr2_tpu_torch.models.remat import rematerialised
 from plr2_tpu_torch.pipeline import full_f32
 
 BATCH_KEYS = ("img", "points", "choose", "target", "model_points", "idx")
+
+
+def count_symmetric(batch: Mapping, sym_list: Sequence[int]) -> Optional[int]:
+    """The batch's number of symmetric samples from its host object ids
+    (`batch["obj"]`), or None where the batch does not carry them."""
+    obj = batch.get("obj")
+    if obj is None:
+        return None
+    sym = set(sym_list)
+    return sum(int(o) in sym for o in obj)
+
+
+def window_sample(window: Mapping, i: int) -> Dict:
+    """Sample `i` of a window as a batch of 1 (with its host object id
+    where the window carries them)."""
+    b = {k: window[k][i:i + 1] for k in BATCH_KEYS}
+    if "obj" in window:
+        b["obj"] = window["obj"][i:i + 1]
+    return b
 
 
 @contextlib.contextmanager
@@ -72,18 +110,22 @@ def adam(module: torch.nn.Module, lr: float) -> torch.optim.Adam:
 class TrainStep:
     """`step(batch, generator) -> {"loss": ..., "dis": ...}` (0-d tensors,
     not synchronised). `batch` is a mapping of `BATCH_KEYS` with a leading
-    batch axis; `generator` draws stage 1's dropout masks. `optimizer`
-    (over the stage's network: PoseNet in stage 1, PoseRefineNet in the
-    refine stage) is the caller's; without one the step builds
-    `adam(network, lr)`, and with neither it can only `accumulate`."""
+    batch axis (and optionally `obj`, the host object ids); `generator`
+    draws stage 1's dropout masks. `optimizer` (over the stage's network:
+    PoseNet in stage 1, PoseRefineNet in the refine stage) is the
+    caller's; without one the step builds `adam(network, lr)`, and with
+    neither it can only `accumulate`."""
 
     def __init__(self, pipe, sym_list: Sequence[int], w: float,
                  lr: Optional[float] = None, refine_iterations: int = 0,
-                 optimizer: Optional[torch.optim.Optimizer] = None):
+                 optimizer: Optional[torch.optim.Optimizer] = None,
+                 remat: bool = False, sym_slots: Optional[int] = None):
         self.pipe = pipe
         self.sym_list = tuple(sym_list)
         self.w = w
         self.refine_iterations = refine_iterations
+        self.remat = remat
+        self.sym_slots = sym_slots
         # a pipeline built with use_kernels=False runs every kernel's
         # plain version, the loss's match included
         self.use_kernels = pipe.posenet.use_kernels
@@ -105,14 +147,45 @@ class TrainStep:
         return {k: torch.as_tensor(batch[k]).to(self.pipe.device)
                 for k in BATCH_KEYS}
 
-    def _stage1_loss(self, b, generator):
+    def dropout_masks(self, batch_size: int,
+                      generator: Optional[torch.Generator],
+                      window: bool = False):
+        """Stage 1's dropout masks for `batch_size` samples, drawn from
+        `generator` on the host as the forward would draw them: for a
+        window, sample by sample as its per-sample steps draw them (None in
+        the refine stage, whose PoseNet runs in eval mode)."""
+        if self.refine_stage:
+            return None
+        draw = self.pipe.posenet.cnn.model.draw_dropout_masks
+        if not window:
+            return draw(batch_size, generator)
+        each = [draw(1, generator) for _ in range(batch_size)]
+        return tuple(None if ms[0] is None else torch.cat(ms)
+                     for ms in zip(*each))
+
+    def inputs(self, batch: Mapping, generator: Optional[torch.Generator] = None,
+               window: bool = False) -> Dict:
+        """`program`'s inputs: the batch (or window) on the pipeline's
+        device and its dropout masks (`dropout_masks`), moved there."""
+        b = self._batch(batch)
+        masks = self.dropout_masks(b["idx"].shape[0], generator, window)
+        b["masks"] = None if masks is None else tuple(
+            None if m is None else m.to(self.pipe.device) for m in masks)
+        return b
+
+    def _posenet(self, b, masks):
+        with rematerialised(self.pipe.posenet, self.remat):
+            return self.pipe.run_posenet(b["img"], b["points"], b["choose"],
+                                         b["idx"], None, masks)
+
+    def _stage1_loss(self, b, masks, n_sym, slots):
         self.pipe.posenet.train()
-        pred_r, pred_t, pred_c, _ = self.pipe.run_posenet(
-            b["img"], b["points"], b["choose"], b["idx"], generator)
+        pred_r, pred_t, pred_c, _ = self._posenet(b, masks)
         out = pose_loss(pred_r, pred_t, pred_c, b["target"],
                         b["model_points"], b["idx"], b["points"], w=self.w,
                         refine=False, sym_list=self.sym_list,
-                        use_kernels=self.use_kernels)
+                        use_kernels=self.use_kernels,
+                        max_sym_slots=slots, n_sym=n_sym)
         return out.loss, out.dis.mean()
 
     def _refine_loss(self, b):
@@ -136,21 +209,50 @@ class TrainStep:
             loss = loss + ro.dis.mean()
         return loss, ro.dis.mean()
 
+    def _backward(self, b, masks, n_sym, slots):
+        with full_f32(self.pipe.dtype == torch.float32), deterministic_convs():
+            if self.refine_stage:
+                loss, dis = self._refine_loss(b)
+            else:
+                loss, dis = self._stage1_loss(b, masks, n_sym, slots)
+            loss.backward()
+        self.pipe.posenet.eval()
+        self.pipe.refiner.eval()
+        return loss.detach(), dis.detach()
+
     def accumulate(self, batch: Mapping,
                    generator: torch.Generator = None):
         """Forward and backward of `batch`: its gradients are ADDED into
         the network's `.grad` (no optimizer step). Returns (loss, dis),
         0-d tensors, not synchronised."""
-        b = self._batch(batch)
-        with full_f32(self.pipe.dtype == torch.float32), deterministic_convs():
-            if self.refine_stage:
-                loss, dis = self._refine_loss(b)
-            else:
-                loss, dis = self._stage1_loss(b, generator)
-            loss.backward()
-        self.pipe.posenet.eval()
-        self.pipe.refiner.eval()
-        return loss.detach(), dis.detach()
+        b = self.inputs(batch, generator)
+        return self._backward(b, b["masks"],
+                              count_symmetric(batch, self.sym_list),
+                              self.sym_slots)
+
+    def program(self, inputs: Mapping, n_sym: Optional[int] = None,
+                window: bool = False):
+        """The capturable gradient program (module docstring) on
+        `inputs` (`TrainStep.inputs`'s: `BATCH_KEYS` and `masks` on the
+        pipeline's device, each with the leading batch or window axis).
+        Zeroes the network's existing gradients in place, then adds the
+        batch's (or each window sample's, in order) into them. Returns
+        (loss, dis): 0-d for a batch, (N,) for a window."""
+        grads = [p.grad for p in self.network.parameters()
+                 if p.grad is not None]
+        if grads:
+            torch._foreach_zero_(grads)
+        masks = inputs["masks"]
+        if not window:
+            return self._backward(inputs, masks, n_sym, self.sym_slots)
+        losses, dists = [], []
+        for i in range(inputs["idx"].shape[0]):
+            m = None if masks is None else tuple(
+                None if x is None else x[i:i + 1] for x in masks)
+            loss, dis = self._backward(window_sample(inputs, i), m, None, None)
+            losses.append(loss)
+            dists.append(dis)
+        return torch.stack(losses), torch.stack(dists)
 
     def apply(self) -> None:
         """One optimizer step on the accumulated gradients, then clear them."""
@@ -167,9 +269,14 @@ class TrainStep:
 
 def make_train_step(pipe, sym_list: Sequence[int], w: float,
                     lr: Optional[float] = None, refine_iterations: int = 0,
-                    optimizer: Optional[torch.optim.Optimizer] = None
+                    optimizer: Optional[torch.optim.Optimizer] = None,
+                    remat: bool = False, sym_slots: Optional[int] = None
                     ) -> TrainStep:
     """The train step of `pipe` (a `DenseFusionPipeline`): stage 1 with
     `refine_iterations=0`, else the refine stage; Adam at `lr` unless the
-    caller passes its `optimizer`."""
-    return TrainStep(pipe, sym_list, w, lr, refine_iterations, optimizer)
+    caller passes its `optimizer`. `remat` rematerialises PoseNet's
+    forward in the backward; `sym_slots=K` runs the stage-1 ADD-S match of
+    a mixed batch with at most K symmetric samples on K compacted slots
+    (`pose_loss(max_sym_slots=K)`; exact)."""
+    return TrainStep(pipe, sym_list, w, lr, refine_iterations, optimizer,
+                     remat, sym_slots)

@@ -133,10 +133,12 @@ class DenseFusionPipeline:
                   for n, p in net.named_parameters()}
         return torch.func.functional_call(net, params, args)
 
-    def run_posenet(self, img, cloud, choose, obj, generator=None):
+    def run_posenet(self, img, cloud, choose, obj, generator=None, masks=None):
         """PoseNet in the pipeline's mode (mixed precision casts the
-        parameters for this call); `generator` draws train-mode dropout."""
-        return self._call(self.posenet, img, cloud, choose, obj, generator)
+        parameters for this call); train-mode dropout takes `masks`
+        (`PSPNet.draw_dropout_masks`) or draws from `generator`."""
+        return self._call(self.posenet, img, cloud, choose, obj, generator,
+                          masks)
 
     def run_refiner(self, cloud, emb, obj):
         """PoseRefineNet in the pipeline's mode."""

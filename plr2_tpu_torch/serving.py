@@ -49,6 +49,9 @@ from plr2_tpu_torch.data.bbox import device_bbox_from_mask
 from plr2_tpu_torch.data.preprocess import (Sample, _M32, _mul32,
                                             preprocess_crops)
 from plr2_tpu_torch.pipeline import DenseFusionPipeline, full_f32
+from plr2_tpu_torch.utils.cuda_graphs import capture as _capture
+from plr2_tpu_torch.utils.cuda_graphs import clone as _clone
+from plr2_tpu_torch.utils.cuda_graphs import weights_key
 
 
 class FramePoses(NamedTuple):
@@ -78,35 +81,6 @@ def frame_key_words(seeds: torch.Tensor, obj_ids: torch.Tensor) -> torch.Tensor:
     w0 = _fmix32((_mul32(s, 0x9E3779B1) + o) & _M32)
     w1 = _fmix32((w0 + _mul32(o, 0x85EBCA77) + 0x27D4EB2F) & _M32)
     return torch.stack([w0, w1], dim=-1)
-
-
-class _Graph(NamedTuple):
-    graph: Any            # torch.cuda.CUDAGraph
-    inputs: tuple         # static input buffers (None where not given)
-    outputs: Any          # static outputs of the captured program
-
-
-def _capture(fn, args: tuple) -> _Graph:
-    """Warm `fn` up eagerly on a side stream, then capture fn(*static
-    copies of args) as one CUDA graph."""
-    static = tuple(None if a is None else a.clone() for a in args)
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn(*static)
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        outputs = fn(*static)
-    return _Graph(graph, static, outputs)
-
-
-def _clone(tree):
-    """A copy of a tensor, a NamedTuple of tensors or a tuple of those."""
-    if isinstance(tree, torch.Tensor):
-        return tree.clone()
-    parts = [_clone(t) for t in tree]
-    return type(tree)(*parts) if hasattr(tree, "_fields") else tuple(parts)
 
 
 class FrameEstimator:
@@ -226,14 +200,6 @@ class FrameEstimator:
 
     # -- dispatch: eager, or one CUDA graph per knob set --
 
-    def _weights_key(self):
-        """What a captured graph holds of the pipeline: its dtype and the
-        storage of its parameters (`cast` replaces it; an in-place load such
-        as load_state_dict does not, and a replay reads the new values)."""
-        nets = (self.pipe.posenet, self.pipe.refiner)
-        return (self.pipe.dtype, self.pipe.mixed,
-                *(next(n.parameters()).data_ptr() for n in nets))
-
     def _knobs(self, with_samples: bool, args: Sequence) -> tuple:
         """The static knobs a call's graph is keyed by: canvas, num_points,
         refine iterations, dtype, poses only or with samples, and each
@@ -247,7 +213,7 @@ class FrameEstimator:
     def _dispatch(self, with_samples, args):
         if not self.graphs:
             return self._program(with_samples, *args)
-        weights = self._weights_key()
+        weights = weights_key(self.pipe)
         if weights != self._weights:  # the pipeline was cast: new graphs
             self._graphs.clear()
             self._weights = weights

@@ -17,8 +17,9 @@ Flags of the JAX CLI that this port does not run raise
 NotImplementedError with the ROADMAP item that brings them: real datasets
 (--dataset_root, or no --synthetic), --config (YAML), --workers > 0,
 --data_parallel / --model_parallel > 1, --pretrained_trunk, --cache_mb.
---sym_slots is accepted and is a no-op (the port's ADD-S runs on the
-symmetric rows alone).
+On the card --fused runs each accumulation window, and --batched each
+step's forward and backward, as one CUDA graph; --sym_slots sizes
+--batched mode's ADD-S compaction, as in the JAX CLI.
 """
 
 from __future__ import annotations
@@ -72,7 +73,7 @@ def parse_args(argv=None):
     p.add_argument("--model_parallel", type=int, default=0,
                    help="> 1 not ported (one device)")
     p.add_argument("--sym_slots", type=int, default=0,
-                   help="accepted, a no-op in the port")
+                   help="batched-mode ADD-S compaction slots (-1 auto, 0 off)")
     p.add_argument("--cache_mb", type=int, default=0,
                    help="decoded-frame cache (not ported: raises)")
     p.add_argument("--num_points", type=int, default=None,

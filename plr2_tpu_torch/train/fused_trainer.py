@@ -6,12 +6,15 @@ Samples are collected into windows of exactly `batch_size` (or
 `batch_size // refine_iterations` in the refine stage, as in `Trainer`),
 stacked on a border-list-snapped canvas, and run through
 `fused_accum.make_fused_accum_step`: per-sample gradients summed, batch-1
-BatchNorm updated sample by sample, one optimizer step. Tail samples that
-fill no window run through the per-sample path with the optimizer step
-withheld (their gradients dropped, their BN updates and metrics kept),
-as `Trainer` treats its leftover window. An interrupt discards the
-partial window entirely: its samples have not run, so neither gradients
-nor BN updates of theirs exist.
+BatchNorm updated sample by sample, one optimizer step. On the card each
+window shape's gradient program is one CUDA graph (`graphs=True`, the
+default; the trainer keeps them across epochs, one per border-list
+canvas its windows snap to); `graphs=False` runs the per-sample loop. Tail
+samples that fill no window run through the per-sample path with the
+optimizer step withheld (their gradients dropped, their BN updates and
+metrics kept), as `Trainer` treats its leftover window. An interrupt
+discards the partial window entirely: its samples have not run, so
+neither gradients nor BN updates of theirs exist.
 """
 
 from __future__ import annotations
@@ -19,19 +22,27 @@ from __future__ import annotations
 import time
 
 from plr2_tpu_torch.train.fused_accum import make_fused_accum_step
+from plr2_tpu_torch.train.graphs import GradientGraphs
 from plr2_tpu_torch.train.trainer import (Trainer, TrainState, child_generator,
                                           sample_batch)
 
 
 class FusedTrainer(Trainer):
-    """Trainer whose accumulation window runs on a shared canvas."""
+    """Trainer whose accumulation window runs on a shared canvas, as one
+    CUDA graph on the card unless `graphs=False`."""
+
+    def __init__(self, config, pipe=None, device="cuda", graphs: bool = True):
+        super().__init__(config, pipe, device)
+        if graphs and self.device.type == "cuda":
+            self.graphs = GradientGraphs()
 
     def train_epoch(self, state: TrainState, dataset, generator):
         cfg = self.cfg.train
         accum = self._accum(state)
         step = make_fused_accum_step(self.pipe, self.sym_list, state.w,
                                      refine_iterations=self._iterations(state),
-                                     optimizer=state.optimizer)
+                                     optimizer=state.optimizer,
+                                     graphs=self.graphs or False)
         g_data, g_drop = child_generator(generator), child_generator(generator)
         pending, losses, dists = [], [], []
         interrupted = False

@@ -27,11 +27,18 @@ drawn from its root generator, and an epoch splits its generator into one
 for the data (`preprocess.Draws`) and one for the dropout masks, so the
 per-sample and fused trainers see the same samples and masks.
 
+Each sample carries its object id on the host (`Sample.obj`), so the
+loss picks its ADD-S branch without reading the device: a per-sample step
+runs ADD or ADD-S alone, as JAX's `lax.switch` does at batch 1.
+
 Unsupported settings raise NotImplementedError: `workers > 0` (the
 threaded data plane, ROADMAP A4), `data_parallel > 1` and
-`model_parallel > 1` (the mesh, ROADMAP A7). `sym_slots` is a no-op (the
-port's ADD-S runs on the symmetric rows alone, the result of every JAX
-setting).
+`model_parallel > 1` (the mesh, ROADMAP A7). `sym_slots` sizes
+`BatchTrainer`'s ADD-S compaction, as in JAX.
+
+`FusedTrainer` and `BatchTrainer` run their gradient programs as CUDA
+graphs on the card (`train/graphs.py`, their `graphs` argument); the
+graphs are dropped at a curriculum switch and at the start of `fit`.
 """
 
 from __future__ import annotations
@@ -48,8 +55,9 @@ from plr2_tpu_torch.data.loader import iterate_samples, stack_samples
 from plr2_tpu_torch.data.preprocess import Sample
 from plr2_tpu_torch.losses.add_loss import pose_loss
 from plr2_tpu_torch.losses.refine_loss import refine_loss
-from plr2_tpu_torch.models.resnet import BatchNorm2d
-from plr2_tpu_torch.parallel.data_parallel import BATCH_KEYS, TrainStep, adam
+from plr2_tpu_torch.models.resnet import batchnorm_buffers
+from plr2_tpu_torch.parallel.data_parallel import (BATCH_KEYS, TrainStep, adam,
+                                                   count_symmetric)
 from plr2_tpu_torch.pipeline import DenseFusionPipeline, full_f32
 
 
@@ -67,9 +75,12 @@ def child_generator(parent: torch.Generator) -> torch.Generator:
     return torch.Generator().manual_seed(seed)
 
 
-def sample_batch(s: Sample) -> Dict[str, torch.Tensor]:
-    """One sample as a batch of 1."""
-    return {k: getattr(s, k)[None] for k in BATCH_KEYS}
+def sample_batch(s: Sample) -> Dict:
+    """One sample as a batch of 1 (with its host object id, where known)."""
+    b = {k: getattr(s, k)[None] for k in BATCH_KEYS}
+    if s.obj is not None:
+        b["obj"] = (s.obj,)
+    return b
 
 
 def require_supported(config: PipelineConfig) -> None:
@@ -115,6 +126,14 @@ class Trainer:
         # preemption hook (fit(stop_fn=...)), checked at sample / batch
         # boundaries (utils/interrupt.py)
         self._stop_fn = None
+        # the CUDA graphs of FusedTrainer / BatchTrainer (GradientGraphs)
+        self.graphs = None
+
+    def drop_graphs(self) -> None:
+        """Release the captured gradient programs (a curriculum switch, a
+        resume)."""
+        if self.graphs is not None:
+            self.graphs.clear()
 
     # ---------- state ----------
 
@@ -138,16 +157,12 @@ class Trainer:
                          refine_iterations=self._iterations(state),
                          optimizer=state.optimizer)
 
-    def _bn_buffers(self) -> List[torch.Tensor]:
-        return [b for m in self.pipe.posenet.modules()
-                if isinstance(m, BatchNorm2d) for b in m.buffers(recurse=False)]
-
     def bn_snapshot(self) -> List[torch.Tensor]:
-        return [b.clone() for b in self._bn_buffers()]
+        return [b.clone() for b in batchnorm_buffers(self.pipe.posenet)]
 
     def bn_restore(self, snapshot: List[torch.Tensor]) -> None:
         with torch.no_grad():
-            for b, s in zip(self._bn_buffers(), snapshot):
+            for b, s in zip(batchnorm_buffers(self.pipe.posenet), snapshot):
                 b.copy_(s)
 
     # ---------- evaluation ----------
@@ -161,15 +176,19 @@ class Trainer:
         pipe.refiner.eval()
         b = {k: torch.as_tensor(batch[k]).to(self.device) for k in BATCH_KEYS}
         kern = pipe.posenet.use_kernels
+        n_sym = count_symmetric(batch, self.sym_list)
         with full_f32(pipe.dtype == torch.float32):
             pred_r, pred_t, pred_c, emb = pipe.run_posenet(
                 b["img"], b["points"], b["choose"], b["idx"])
             # before the refine stage symmetric objects score ADD-S here (the
-            # reference test loop's refine_start flag)
+            # reference test loop's refine_start flag); this eager loop
+            # matches exactly its symmetric samples (`compact` at n_sym
+            # slots: `mixed`'s distances), whatever the step's `sym_slots`
             out = pose_loss(pred_r, pred_t, pred_c, b["target"],
                             b["model_points"], b["idx"], b["points"], w=0.0,
                             refine=refine_iterations > 0,
-                            sym_list=self.sym_list, use_kernels=kern)
+                            sym_list=self.sym_list, use_kernels=kern,
+                            max_sym_slots=n_sym, n_sym=n_sym)
             dis, new_points, new_target = out.dis, out.new_points, out.new_target
             for _ in range(refine_iterations):
                 dr, dt = pipe.run_refiner(new_points, emb, b["idx"])
@@ -252,7 +271,10 @@ class Trainer:
         canvas = snap_canvas(max(max(s.img.shape[0], s.img.shape[1])
                                  for s in samples))
         b = stack_samples(samples, crop=max(canvas, self.cfg.dataset.crop_size))
-        return {k: getattr(b, k) for k in BATCH_KEYS}
+        out = {k: getattr(b, k) for k in BATCH_KEYS}
+        if b.obj is not None:  # the host object ids (the loss's branch)
+            out["obj"] = b.obj
+        return out
 
     def _test_epoch_batched(self, state: TrainState, dataset,
                             generator: torch.Generator) -> float:
@@ -289,9 +311,11 @@ class Trainer:
             state.w *= cfg.w_rate
             net = self.pipe.refiner if state.refine_started else self.pipe.posenet
             state.optimizer = adam(net, state.lr)
+            self.drop_graphs()
         if state.best_test < cfg.refine_margin and not state.refine_started:
             state.refine_started = True
             state.optimizer = adam(self.pipe.refiner, state.lr)
+            self.drop_graphs()
         return state
 
     @staticmethod
@@ -317,6 +341,7 @@ class Trainer:
         if generator is None:
             generator = torch.Generator().manual_seed(self.cfg.train.seed + 1)
         self._stop_fn = stop_fn
+        self.drop_graphs()  # the state may come from a checkpoint
         try:
             self._sync_refine_meshes(state, train_ds, test_ds)  # resume case
             for _ in range(epochs):

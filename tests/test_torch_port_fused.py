@@ -14,7 +14,7 @@ import torch
 from plr2_tpu.pipeline import DenseFusionPipeline as JPipeline
 from plr2_tpu.train.fused_accum import make_fused_window_grads as j_window_grads
 from plr2_tpu_torch.models import posenet_state_dict
-from plr2_tpu_torch.parallel.data_parallel import BATCH_KEYS
+from plr2_tpu_torch.parallel.data_parallel import BATCH_KEYS, TrainStep
 from plr2_tpu_torch.train import (FusedTrainer, Trainer, make_fused_accum_step,
                                   make_fused_window_grads)
 from test_torch_port_trainer import (LR, N, NUM_OBJ, SYM, TRAIN_SEED, W,
@@ -103,25 +103,32 @@ def test_fused_window_matches_jax_window_grads_in_float64(window):
                                            jax.random.split(jax.random.key(0), 2))
         want = posenet_state_dict(jax.device_get({"params": jg,
                                                   "batch_stats": jbs}))
-    pipe = port_pipe(variables).cast(torch.float64)
     win64 = {k: v.double() if v.is_floating_point() else v for k, v in win.items()}
-    losses, dists = make_fused_window_grads(pipe, SYM, W)(win64, None)
-    np.testing.assert_allclose(losses.numpy(), np.asarray(jl), rtol=1e-4)
-    np.testing.assert_allclose(dists.numpy(), np.asarray(jd), rtol=1e-4)
-    got = _grads(pipe.posenet)
-    num = den = 0.0
-    for n, g in got.items():
-        ref = want[n].double()
-        err = float((g - ref).norm() / ref.norm().clamp(min=1e-300))
-        assert err <= 1e-4, (n, err)
-        num += float((g - ref).pow(2).sum())
-        den += float(ref.pow(2).sum())
-    assert (num / den) ** 0.5 <= 1e-4
-    state = pipe.posenet.state_dict()
-    for n, ref in want.items():
-        if "running" in n:
-            np.testing.assert_allclose(state[n].numpy(), ref.numpy(),
-                                       rtol=1e-9, atol=1e-12, err_msg=n)
+    for form in ("loop", "program"):
+        pipe = port_pipe(variables).cast(torch.float64)
+        if form == "loop":
+            losses, dists = make_fused_window_grads(pipe, SYM, W)(win64, None)
+        else:
+            step = TrainStep(pipe, SYM, W)
+            losses, dists = step.program(step.inputs(win64, None, window=True),
+                                         window=True)
+        np.testing.assert_allclose(losses.numpy(), np.asarray(jl), rtol=1e-4)
+        np.testing.assert_allclose(dists.numpy(), np.asarray(jd), rtol=1e-4)
+        got = _grads(pipe.posenet)
+        num = den = 0.0
+        for n, g in got.items():
+            ref = want[n].double()
+            err = float((g - ref).norm() / ref.norm().clamp(min=1e-300))
+            assert err <= 1e-4, (form, n, err)
+            num += float((g - ref).pow(2).sum())
+            den += float(ref.pow(2).sum())
+        assert (num / den) ** 0.5 <= 1e-4, form
+        state = pipe.posenet.state_dict()
+        for n, ref in want.items():
+            if "running" in n:
+                np.testing.assert_allclose(state[n].numpy(), ref.numpy(),
+                                           rtol=1e-9, atol=1e-12,
+                                           err_msg=f"{form} {n}")
 
 
 def test_fused_accum_step_takes_one_adam_step(window):

@@ -36,6 +36,7 @@ from plr2_tpu_torch.data import preprocess as t_pre
 from plr2_tpu_torch.data.loader import raw_to_sample, stack_samples
 from plr2_tpu_torch.serving import FrameEstimator, frame_key_words
 from plr2_tpu_torch.tools import serve
+from plr2_tpu_torch.utils.cuda_graphs import Graph
 
 torch.set_num_threads(2)
 
@@ -387,7 +388,7 @@ def _eager_capture(log):
                     [t for part in out for t in part]
                 for o, n in zip(flat_out, flat_new):
                     o.copy_(n)
-        return serving._Graph(Replay, static, out)
+        return Graph(Replay, static, out)
     return capture
 
 
