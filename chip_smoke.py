@@ -161,6 +161,28 @@ non-zero, and there is no CPU fallback:
    at batch TRAIN_BATCH, f32, stage 1: gradients and BN bit-equal, the
    step's peak memory above the state (must be lower) and step ms.
 
+21. real data (last): the real-data path (plr2_tpu_torch/data/{codecs,
+   linemod, ycb, prefetch}.py, plr2_tpu_torch/native) on the card, with no
+   PIL and no PyYAML. Writes a LineMOD tree at 480 x 640 (ape and the
+   symmetric eggbox, 8 train and 2 test frames each; PNGs by the port's
+   writer with every row filter, upstream-style gt.yml / models_info.yml
+   text, ASCII PLY) and a YCB-Video tree (the 21 classes, meshes for three
+   of them, one symmetric; real frames of both cameras and synthetic
+   frames; meta.mat), and reads every file back (read_png, read_yaml:
+   equal); the native data plane's g++ build time; prefetch at 0, 2 and 4
+   workers, threads and processes, on both trees: bit-equal samples;
+   decode ms cold and cached, native host prep and finish_sample ms a
+   sample, prefetch samples/s at 0, 2 and 4 workers against the inline
+   iterate_samples, Trainer stage-1 samples/s inline and with 2 workers;
+   a stage-1 Trainer epoch and its test epoch on the LineMOD tree fed by 2
+   worker threads (the launch counts: the slice's main path, added to the
+   kernels line as "real_data"); the CLI chain as processes with walls:
+   train --dataset linemod --dataset_root --workers 2 --cache_mb 64, then
+   eval_linemod with and without --segnet_results (checkpoint restored,
+   report keys the tree's objects), train --dataset ycb, serve
+   --dataset_root eager and with graphs, infer on one frame; every kernel
+   against its plain version at the real crops' shapes.
+
 The second-to-last line is a JSON object with one entry per kernel and
 dtype; the last line is {"ok": true, "device": {...}}.
 """
@@ -175,6 +197,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -3368,6 +3391,469 @@ def serve_timing_phase(kern, frames, stacked):
     return rates, lat, walls
 
 
+# ---------------- the real-data path (LineMOD / YCB-Video layouts on disk,
+# the native data plane, the prefetcher, the CLIs' --dataset_root) ----------
+
+# LineMOD: ape (id 1, OBJLIST position 0) and eggbox (id 10, position 7,
+# symmetric: the ADD-S match runs); frames per object
+REAL_LM_OBJS, REAL_LM_TRAIN, REAL_LM_TEST = (1, 10), 8, 2
+# LineMOD's width (the linemod_train preset): 500 points, 500 mesh points
+REAL_LM_POINTS = 500
+# YCB-Video: the 21 upstream classes; meshes for 002_master_chef_can,
+# 003_cracker_box and 024_bowl (class 12, symmetric); real frames of camera
+# 1 (sequence 0001) and camera 2 (sequence 0060), synthetic frames
+YCB_CLASSES = ("002_master_chef_can", "003_cracker_box", "004_sugar_box",
+               "005_tomato_soup_can", "006_mustard_bottle", "007_tuna_fish_can",
+               "008_pudding_box", "009_gelatin_box", "010_potted_meat_can",
+               "011_banana", "019_pitcher_base", "021_bleach_cleanser",
+               "024_bowl", "025_mug", "035_power_drill", "036_wood_block",
+               "037_scissors", "040_large_marker", "051_large_clamp",
+               "052_extra_large_clamp", "061_foam_brick")
+REAL_YCB_OBJS = (0, 1, 12)
+REAL_YCB_TRAIN = ("data/0001/000001", "data/0001/000002", "data/0001/000003",
+                  "data/0060/000001", "data_syn/000001", "data_syn/000002")
+REAL_YCB_TEST = ("data/0001/000004", "data/0060/000002")
+REAL_WORKERS = (0, 2, 4)
+# every PNG row filter, row by row (None, Sub, Up, Average, Paeth)
+PNG_FILTERS = (0, 1, 2, 3, 4)
+
+
+def _fmt(v):
+    return f"{float(v):.8f}"
+
+
+def write_linemod_layout(root, written):
+    """A Linemod_preprocessed tree at 480 x 640: per object rgb / depth /
+    mask PNGs (the port's writer, every row filter; the ape's masks grey,
+    the eggbox's RGB as upstream's), upstream-style gt.yml (flow lists,
+    one wrapped over two lines), info.yml, train / test splits, models in
+    mm as ASCII PLY and models_info.yml (flow mappings). Returns the YAML
+    documents it means; `written` collects every PNG's array by path."""
+    from plr2_tpu_torch.data.codecs import write_png
+    from plr2_tpu_torch.data.linemod import INTRINSICS
+    from plr2_tpu_torch.data.synthetic import (box_model_points, random_pose,
+                                               render_frame)
+    rng = np.random.default_rng(0)
+    (root / "models").mkdir(parents=True)
+    meant, info_lines = {}, []
+    for k, obj in enumerate(REAL_LM_OBJS):
+        d = root / "data" / f"{obj:02d}"
+        for sub in ("rgb", "depth", "mask"):
+            (d / sub).mkdir(parents=True)
+        # half extents: ~10 and ~15 cm across, as the ape's and the
+        # eggbox's diameters (102 and 165 mm)
+        ext = (0.03, 0.04, 0.035) if obj == 1 else (0.045, 0.05, 0.04)
+        mp = box_model_points(2500, extent=ext, seed=obj) * 1000.0
+        with open(root / "models" / f"obj_{obj:02d}.ply", "w") as f:
+            f.write(f"ply\nformat ascii 1.0\nelement vertex {len(mp)}\n"
+                    "property float x\nproperty float y\nproperty float z\n"
+                    "element face 0\nproperty list uchar int vertex_indices\n"
+                    "end_header\n")
+            f.writelines(f"{p[0]:.4f} {p[1]:.4f} {p[2]:.4f}\n" for p in mp)
+        diameter = float(np.linalg.norm(mp.max(0) - mp.min(0)))
+        info_lines.append(f"{obj}: {{diameter: {_fmt(diameter)}, min_x: "
+                          f"{_fmt(mp[:, 0].min())}, size_x: {_fmt(np.ptp(mp[:, 0]))}}}\n")
+        meant.setdefault("models_info", {})[obj] = {
+            "diameter": float(_fmt(diameter)), "min_x": float(_fmt(mp[:, 0].min())),
+            "size_x": float(_fmt(np.ptp(mp[:, 0])))}
+        gt_text, gt = ["# ground truth, upstream layout\n"], {}
+        n = REAL_LM_TRAIN + REAL_LM_TEST
+        for fr in range(n):
+            r, t = random_pose(rng, z_range=(0.6, 0.9))
+            frame = render_frame({obj: mp / 1000.0}, {obj: (r, t)},
+                                 intrinsics=INTRINSICS, seed=100 * k + fr)
+            mask = ((frame.label == obj) * 255).astype(np.uint8)
+            if obj == 10:
+                mask = np.repeat(mask[..., None], 3, -1)
+            for sub, arr in (("rgb", frame.color), ("depth", frame.depth),
+                             ("mask", mask)):
+                path = d / sub / f"{fr:04d}.png"
+                write_png(path, arr, filters=PNG_FILTERS)
+                written[path] = arr
+            rr, tt = r.reshape(-1), t * 1000.0
+            ys, xs = np.nonzero(frame.label == obj)
+            bb = [int(xs.min()), int(ys.min()), int(np.ptp(xs)), int(np.ptp(ys))]
+            head = ", ".join(_fmt(v) for v in rr[:3])
+            tail = ", ".join(_fmt(v) for v in rr[3:])
+            sep = ",\n    " if fr == 1 else ", "  # one list wrapped over two lines
+            gt_text.append(f"{fr}:\n- cam_R_m2c: [{head}{sep}{tail}]\n"
+                           f"  cam_t_m2c: [{', '.join(_fmt(v) for v in tt)}]\n"
+                           f"  obj_bb: [{', '.join(map(str, bb))}]\n  obj_id: {obj}\n")
+            gt[fr] = [{"cam_R_m2c": [float(_fmt(v)) for v in rr],
+                       "cam_t_m2c": [float(_fmt(v)) for v in tt],
+                       "obj_bb": bb, "obj_id": obj}]
+        (d / "gt.yml").write_text("".join(gt_text))
+        (d / "info.yml").write_text("".join(
+            f"{fr}:\n  cam_K: [572.4114, 0.0, 325.2611, 0.0, 573.57043, "
+            f"242.04899, 0.0, 0.0, 1.0]\n  depth_scale: 1.0\n" for fr in range(n)))
+        (d / "train.txt").write_text("".join(f"{fr:04d}\n" for fr in range(REAL_LM_TRAIN)))
+        (d / "test.txt").write_text("".join(f"{fr:04d}\n" for fr in range(REAL_LM_TRAIN, n)))
+        meant[obj] = gt
+    (root / "models" / "models_info.yml").write_text("".join(info_lines))
+    return meant
+
+
+def write_ycb_layout(root, written):
+    """A YCB_Video_Dataset tree at 480 x 640: colour / depth (factor 10000)
+    / label PNGs and meta.mat per frame (three objects each, one
+    symmetric), the 21 classes, train / test lists with real frames of
+    both cameras and synthetic frames, and points.xyz meshes in metres."""
+    import scipy.io as sio
+    from plr2_tpu_torch.data.codecs import write_png
+    from plr2_tpu_torch.data.synthetic import (box_model_points, random_pose,
+                                               render_frame)
+    from plr2_tpu_torch.data.ycb import CAM_1, CAM_2
+    rng = np.random.default_rng(1)
+    (root / "dataset_config").mkdir(parents=True)
+    models = {}
+    for ci in REAL_YCB_OBJS:
+        (root / "models" / YCB_CLASSES[ci]).mkdir(parents=True)
+        models[ci] = box_model_points(3000, extent=(0.025, 0.03, 0.035), seed=20 + ci)
+        np.savetxt(root / "models" / YCB_CLASSES[ci] / "points.xyz", models[ci], fmt="%.6f")
+    for j, rel in enumerate(REAL_YCB_TRAIN + REAL_YCB_TEST):
+        (root / rel).parent.mkdir(parents=True, exist_ok=True)
+        cam = CAM_2 if rel.startswith("data/0060") else CAM_1
+        poses = {}
+        for k, ci in enumerate(REAL_YCB_OBJS):
+            r, t = random_pose(rng, z_range=(0.9, 1.1))
+            t[0], t[1] = -0.14 + 0.14 * k, 0.02 * k - 0.02
+            poses[ci + 1] = (r, t)
+        frame = render_frame({ci + 1: models[ci] for ci in REAL_YCB_OBJS}, poses,
+                             intrinsics=cam, seed=300 + j)
+        for suffix, arr in (("color", frame.color), ("depth", frame.depth),
+                            ("label", frame.label.astype(np.uint8))):
+            path = root / f"{rel}-{suffix}.png"
+            write_png(path, arr, filters=PNG_FILTERS)
+            written[path] = arr
+        ids = sorted(poses)
+        sio.savemat(str(root / f"{rel}-meta.mat"), {
+            "poses": np.stack([np.concatenate([poses[i][0], poses[i][1][:, None]], 1)
+                               for i in ids], -1).astype(np.float64),
+            "cls_indexes": np.asarray(ids, np.float64)[:, None],
+            "factor_depth": np.array([[cam["cam_scale"]]]),
+            "intrinsic_matrix": np.array([[cam["fx"], 0, cam["cx"]],
+                                          [0, cam["fy"], cam["cy"]], [0, 0, 1]])})
+    (root / "dataset_config" / "classes.txt").write_text("\n".join(YCB_CLASSES) + "\n")
+    (root / "dataset_config" / "train_data_list.txt").write_text("\n".join(REAL_YCB_TRAIN) + "\n")
+    (root / "dataset_config" / "test_data_list.txt").write_text("\n".join(REAL_YCB_TEST) + "\n")
+
+
+def samples_equal(what, a, b):
+    if len(a) != len(b) or any(x.obj != y.obj or not all(torch.equal(u, v) for u, v in zip(x, y))
+                               for x, y in zip(a, b)):
+        raise AssertionError(f"real data: {what} differ")
+
+
+def real_cli(name, args, walls, tag=None):
+    """One `python -m plr2_tpu_torch.tools.<name>` process; its wall time
+    goes into `walls` under `tag`. Returns stdout + stderr."""
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", f"plr2_tpu_torch.tools.{name}", *args],
+                         cwd=ROOT, capture_output=True, text=True, timeout=600)
+    walls[tag or name] = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise AssertionError(f"{tag or name} CLI failed: {res.stderr[-3000:]}")
+    return res.stdout + res.stderr
+
+
+def linemod_config(workers):
+    import dataclasses
+    from plr2_tpu_torch.config import get_preset
+    from plr2_tpu_torch.tools.train import with_sizes
+    cfg = get_preset("linemod_train")
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, workers=workers, batch_size=WINDOW))
+    return with_sizes(cfg, REAL_LM_POINTS, REAL_LM_POINTS)
+
+
+@phase("real data")
+def real_data_phase(errs):
+    """The real-data path on the card: miniature LineMOD and YCB-Video trees
+    written here (no PIL, no PyYAML), read back; the native data plane's
+    build; prefetch at 0, 2 and 4 workers, threads and processes, bit-equal;
+    per-sample times and samples/s; a Trainer epoch on the LineMOD tree fed
+    by two worker threads with its launch counts; the CLI chain with
+    --dataset_root as processes; the kernels at the real crops' shapes."""
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+    from plr2_tpu_torch import native
+    from plr2_tpu_torch.data import LinemodDataset, YCBDataset, iterate_samples
+    from plr2_tpu_torch.data.codecs import read_png, read_yaml, write_png
+    from plr2_tpu_torch.data.linemod import OBJLIST
+    from plr2_tpu_torch.data.prefetch import (finish_sample, host_prepare_raw,
+                                              iterate_prefetch_samples)
+    from plr2_tpu_torch.data.preprocess import draw
+    from plr2_tpu_torch.ops import launch_counts, reset_launch_counts
+    from plr2_tpu_torch.train import Trainer
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        lm_root, ycb_root = tmp / "Linemod_preprocessed", tmp / "YCB_Video_Dataset"
+        written = {}
+        t0 = time.perf_counter()
+        meant = write_linemod_layout(lm_root, written)
+        write_ycb_layout(ycb_root, written)
+        out["write_s"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        path, log = native.build()
+        native.lib()
+        out["native_build_s"] = time.perf_counter() - t0
+        print(f"  native data plane {path}: {'built' if log is not None else 'reused'} "
+              f"by one g++ call, wall {out['native_build_s']:.2f} s")
+
+        bad = [str(p) for p, arr in written.items()
+               if not (read_png(p).dtype == arr.dtype and np.array_equal(read_png(p), arr))]
+        for obj in REAL_LM_OBJS:
+            if read_yaml(lm_root / "data" / f"{obj:02d}" / "gt.yml") != meant[obj]:
+                bad.append(f"gt.yml of {obj}")
+        if read_yaml(lm_root / "models" / "models_info.yml") != meant["models_info"]:
+            bad.append("models_info.yml")
+        print(f"  wrote {len(written)} PNGs (rows filtered by types {PNG_FILTERS}), "
+              f"upstream-style YAML and meta.mat in {out['write_s']:.2f} s; read_png "
+              f"and read_yaml give back what was written: {'ok' if not bad else bad[:5]}")
+        if bad:
+            raise AssertionError(f"real data: read back differs: {bad[:5]}")
+
+        lm_train = LinemodDataset(str(lm_root), "train", REAL_LM_POINTS, REAL_LM_POINTS)
+        lm_test = LinemodDataset(str(lm_root), "test", REAL_LM_POINTS, REAL_LM_POINTS, add_noise=False)
+        ycb_train = YCBDataset(str(ycb_root), "train", NUM_POINTS, MESH_POINTS, cache_mb=64)
+        n_tr, n_te = len(lm_train), len(lm_test)
+        s_tr = sum(it["obj"] == 10 for it in lm_train.items)
+        s_te = sum(it["obj"] == 10 for it in lm_test.items)
+
+        # prefetch: the same samples at any worker count, threads or
+        # processes (2 workers on both trees, 4 on LineMOD's: a spawned
+        # worker takes seconds to import torch, so the first two pools
+        # start at once)
+        def prefetched(ds, n_pts, workers, procs):
+            t0 = time.perf_counter()
+            got = list(iterate_prefetch_samples(
+                ds, torch.Generator().manual_seed(21), n_pts, add_noise=True,
+                shuffle=True, seed=4, num_workers=workers, device=DEVICE,
+                use_processes=procs))
+            torch.cuda.synchronize()
+            return got, time.perf_counter() - t0
+        trees = {"linemod": (lm_train, REAL_LM_POINTS), "ycb": (ycb_train, NUM_POINTS)}
+        runs = {(name, w, False): prefetched(*trees[name], w, False)
+                for name in trees for w in REAL_WORKERS}
+        with ThreadPoolExecutor(2) as pool:
+            futures = {(name, 2, True): pool.submit(prefetched, *trees[name], 2, True)
+                       for name in trees}
+            runs.update({k: f.result() for k, f in futures.items()})
+        runs[("linemod", 4, True)] = prefetched(*trees["linemod"], 4, True)
+        for (name, w, procs), (got, _) in runs.items():
+            samples_equal(f"{name} prefetch with {w} {'processes' if procs else 'threads'}",
+                          got, runs[(name, 0, False)][0])
+        for name, (ds, _) in trees.items():
+            print(f"  prefetch {name} ({len(ds)} samples, augmented): 0 workers, 2 and 4 "
+                  f"threads, {'2 and 4' if name == 'linemod' else '2'} processes bit-equal "
+                  f"ok (walls " + ", ".join(f"{w}{'p' if p else 't'} {t:.2f} s"
+                                            for (nm, w, p), (_, t) in runs.items()
+                                            if nm == name)
+                  + "; process pools started cold)")
+        del runs
+
+        # per-sample times of the path: decode cold and cached, the native
+        # host prep, finish_sample on the card
+        cold = LinemodDataset(str(lm_root), "train", REAL_LM_POINTS, REAL_LM_POINTS)
+        cached = LinemodDataset(str(lm_root), "train", REAL_LM_POINTS, REAL_LM_POINTS, cache_mb=64)
+        raws = [cached.get_raw(i) for i in range(n_tr)]  # fills the cache
+        t0 = time.perf_counter()
+        for i in range(n_tr):
+            cold.get_raw(i)
+        out["decode_cold_ms"] = (time.perf_counter() - t0) * 1e3 / n_tr
+        t0 = time.perf_counter()
+        for i in range(n_tr):
+            cached.get_raw(i)
+        out["decode_cached_ms"] = (time.perf_counter() - t0) * 1e3 / n_tr
+        t0 = time.perf_counter()
+        preps = [host_prepare_raw(r, REAL_LM_POINTS, seed=i) for i, r in enumerate(raws)]
+        out["host_prep_ms"] = (time.perf_counter() - t0) * 1e3 / n_tr
+        names = ("img_u8", "points", "choose", "model_points", "target_r", "target_t")
+        d = draw(torch.Generator().manual_seed(3))
+
+        def finish_all():
+            for p in preps:
+                finish_sample(*(torch.from_numpy(np.array(p[k])).to(DEVICE) for k in names),
+                              int(p["idx"]), d, add_noise=True)
+        finish_all()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        finish_all()
+        torch.cuda.synchronize()
+        out["finish_ms"] = (time.perf_counter() - t0) * 1e3 / n_tr
+        t0 = time.perf_counter()
+        for i in range(len(ycb_train)):
+            ycb_train._decode_frame(ycb_train.items[i]["frame"])
+        out["ycb_decode_cold_ms"] = (time.perf_counter() - t0) * 1e3 / len(ycb_train)
+        print(f"  a LineMOD sample (480 x 640, {REAL_LM_POINTS} points): decode {out['decode_cold_ms']:.3f} "
+              f"ms cold, {out['decode_cached_ms']:.4f} ms cached; native host prep "
+              f"{out['host_prep_ms']:.3f} ms; finish_sample (upload, jitter, noise, "
+              f"normalisation on the card) {out['finish_ms']:.3f} ms; a YCB frame's "
+              f"decode (3 PNGs and meta.mat) {out['ycb_decode_cold_ms']:.3f} ms cold")
+
+        # samples/s of the prefetcher (decode included: no cache) against the
+        # inline device path (iterate_samples): 3 passes each, in one order
+        # and then the reverse (the host's clock drifts), the mean of both
+        reps = 3
+        fns = {f"prefetch_{w}": lambda w=w: iterate_prefetch_samples(
+                   cold, torch.Generator().manual_seed(1), REAL_LM_POINTS,
+                   add_noise=True, shuffle=True, num_workers=w, device=DEVICE)
+               for w in REAL_WORKERS}
+        fns["inline"] = lambda: iterate_samples(
+            cold, torch.Generator().manual_seed(1), REAL_LM_POINTS, add_noise=True,
+            shuffle=True, device=DEVICE)
+        for fn in fns.values():
+            list(fn())
+        rates = {name: [] for name in fns}
+        for order in (list(fns), list(fns)[::-1]):
+            for name in order:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(reps):
+                    for _s in fns[name]():
+                        pass
+                torch.cuda.synchronize()
+                rates[name].append(reps * n_tr / (time.perf_counter() - t0))
+        for name, r in rates.items():
+            out[f"{name}_samples_per_s"] = sum(r) / len(r)
+        print("  samples/s over the LineMOD tree (decode included, augmented, on the card; "
+              "forward and reverse order): " + ", ".join(
+                  f"{k} {r[0]:.1f} / {r[1]:.1f}" for k, r in rates.items()))
+
+        # the path through the kernels: a stage-1 Trainer epoch and its test
+        # epoch on the LineMOD tree, fed by two worker threads
+        tr = Trainer(linemod_config(2), device=DEVICE)
+        state = tr.init_state()
+        reset_launch_counts()
+        state, info = tr.train_epoch(state, lm_train, torch.Generator().manual_seed(6))
+        dis = tr.test_epoch(state, lm_test, torch.Generator().manual_seed(7))
+        torch.cuda.synchronize()
+        seen = launch_counts()
+        fwd = 3 * (n_tr + n_te)
+        expect = counts(mlp_head=fwd, upconv3x3_prelu=fwd, nn_match=s_tr + s_te,
+                        gather_rows_backward=n_tr)
+        finite = all(math.isfinite(v) for v in info["losses"]) and math.isfinite(dis)
+        print(f"  Trainer stage-1 epoch on the LineMOD tree ({n_tr} train / {n_te} test "
+              f"samples, {s_tr} / {s_te} eggbox), 2 worker threads: loss "
+              f"{info['train_loss']:.5f}, test dis {dis:.5f}, finite {finite}; "
+              f"launches {seen}")
+        if seen != expect or not finite:
+            raise AssertionError(f"real data: expected launches {expect}, got {seen}; "
+                                 f"finite {finite}")
+        trainers = {w: Trainer(linemod_config(w), pipe=tr.pipe) for w in (0, 2)}
+        states = {w: t.init_state() for w, t in trainers.items()}
+        trainers[0].train_epoch(states[0], cold, torch.Generator().manual_seed(8))  # warm
+        rates = {0: [], 2: []}
+        for workers in (0, 2, 2, 0):  # in turns: the host's clock drifts
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainers[workers].train_epoch(states[workers], cold,
+                                          torch.Generator().manual_seed(9))
+            torch.cuda.synchronize()
+            rates[workers].append(n_tr / (time.perf_counter() - t0))
+        for workers, r in rates.items():
+            out[f"trainer_{workers}w_samples_per_s"] = sum(r) / len(r)
+        print(f"  Trainer stage-1 samples/s on the LineMOD tree (decode included; epochs "
+              f"in turns 0, 2, 2, 0 workers): inline {rates[0][0]:.1f} / {rates[0][1]:.1f}, "
+              f"2 worker threads {rates[2][0]:.1f} / {rates[2][1]:.1f}")
+        tw, st = trainers, states
+        del tr, tw, st, state
+
+        # the CLI chain as processes, in two waves: both trainings, then the
+        # five runs that read their checkpoints
+        walls = {}
+        seg = tmp / "segnet_results"
+        for obj in REAL_LM_OBJS:
+            (seg / f"{obj:02d}_label").mkdir(parents=True)
+            for fr in range(REAL_LM_TRAIN, REAL_LM_TRAIN + REAL_LM_TEST):
+                m = read_png(lm_root / "data" / f"{obj:02d}" / "mask" / f"{fr:04d}.png")
+                m = (m if m.ndim == 2 else m[..., 0]).copy()
+                m[:, 1::3] = 0  # an imperfect prediction
+                write_png(seg / f"{obj:02d}_label" / f"{fr:04d}_label.png", m)
+        models = tmp / "models"
+        train_args = {name: ["--dataset", name, "--dataset_root", str(root), "--nepoch",
+                             "1", "--workers", "2", "--cache_mb", "64", "--outf",
+                             str(models / name), "--log_dir", str(models / name)]
+                      for name, root in (("linemod", lm_root), ("ycb", ycb_root))}
+        with ThreadPoolExecutor(5) as pool:
+            logs = {name: pool.submit(real_cli, "train", a, walls, f"train_{name}")
+                    for name, a in train_args.items()}
+            losses = [float(x.split("loss=")[1].split()[0])
+                      for f in logs.values() for x in f.result().splitlines()
+                      if "epoch 1:" in x]
+            dists = {tag: tmp / f"{tag}.json" for tag in ("eval_linemod", "eval_linemod_segnet")}
+            evals = {tag: pool.submit(real_cli, "eval_linemod", [
+                "--dataset_root", str(lm_root), "--model", str(models / "linemod" / "linemod"),
+                "--refine_iterations", "2", "--save_distances", str(dists[tag]),
+                *(["--segnet_results", str(seg)] if tag.endswith("segnet") else [])],
+                walls, tag) for tag in dists}
+            serves = {tag: pool.submit(real_cli, "serve", [
+                "--dataset_root", str(ycb_root), "--model", str(models / "ycb" / "ycb"),
+                "--num_frames", "2", "--max_objects", "3", *extra], walls, tag)
+                for tag, extra in (("serve_eager", ["--eager"]), ("serve_graph", []))}
+            base = ycb_root / REAL_YCB_TEST[0]
+            infer = pool.submit(real_cli, "infer", [
+                "--color", f"{base}-color.png", "--depth", f"{base}-depth.png",
+                "--label", f"{base}-label.png", "--obj", "13", "--points",
+                str(ycb_root / "models" / YCB_CLASSES[12] / "points.xyz"),
+                "--model", str(models / "ycb" / "ycb")], walls)
+            loaded = {tag: "loaded checkpoint (epoch 1)" in f.result()
+                      for tag, f in evals.items()}
+            reports = {tag: (json.loads(dists[tag].read_text()), loaded[tag])
+                       for tag in evals}
+            served = {tag: [json.loads(x) for x in f.result().splitlines()
+                            if x.startswith("{")] for tag, f in serves.items()}
+            inf = infer.result()
+        keys = sorted(str(OBJLIST.index(o)) for o in REAL_LM_OBJS)
+        ok = (len(losses) == 2 and all(math.isfinite(v) for v in losses)
+              and all(sorted(r["distances"]) == keys and loaded for r, loaded in reports.values())
+              and all(len(v) == 2 and [o["obj"] for o in v[0]["objects"]] ==
+                      [c + 1 for c in REAL_YCB_OBJS] and all(o["valid"] for f in v for o in f["objects"])
+                      for v in served.values())
+              and "loaded checkpoint" in inf and "pose quaternion" in inf)
+        poses_same = all(a["objects"] == b["objects"] for a, b in
+                         zip(served["serve_eager"], served["serve_graph"]))
+        out.update({f"{k}_wall_s": v for k, v in walls.items()})
+        print(f"  CLI chain with --dataset_root (walls, process start included; the two "
+              f"trainings at once, then the other five at once): "
+              f"{ {k: round(v, 2) for k, v in walls.items()} } s; epoch-1 losses {losses}; "
+              f"report keys {keys} with and without --segnet_results, checkpoints "
+              f"restored; serve (eager and graph) poses of objects "
+              f"{[c + 1 for c in REAL_YCB_OBJS]} valid, eager == graph {poses_same}; "
+              f"infer on one frame {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"real data: CLI chain: {reports}, {served}, {inf[-1000:]}")
+
+        # the kernels at the real crops' shapes
+        crops = set()
+        for ds in (lm_train, lm_test, ycb_train):
+            for i in range(len(ds)):
+                raw = ds.get_raw(i)
+                r0, r1, c0, c1 = native.mask_bbox(raw.get("bbox_mask", raw["mask"]))
+                crops.add((r1 - r0, c1 - c0))
+        print(f"  the real crops' shapes: {sorted(crops)}")
+    check_kernels_at(crops, errs, torch.Generator().manual_seed(12))
+    return seen, out
+
+
+def add_real_launches(entries, seen, errs):
+    """The real-data path's launches (an f32 Trainer epoch) and the kernels'
+    errors at its crops into the kernels line."""
+    for e in entries:
+        kname = {"mlp_head_f32": "mlp_head", "upconv3x3_prelu_f32": "upconv3x3_prelu",
+                 "nn_match": "nn_match", "nn_argmin": "nn_argmin",
+                 "nn_match_mxu": "nn_match_mxu",
+                 "gather_rows_backward": "gather_rows_backward"}.get(e["name"])
+        if kname is None:
+            continue
+        e["launches_by_path"]["real_data"] = seen[kname]
+        e["launches"] += seen[kname]
+        if e["name"].endswith("_f32"):
+            e["max_abs_err"] = max(e["max_abs_err"], errs[(kname, "f32")])
+
+
 def main():
     t0 = time.perf_counter()
     import_port()
@@ -3412,6 +3898,9 @@ def main():
     torch.cuda.empty_cache()
     entries.append(quant_timing_phase(*quant_phase()))
     entries.append(gather_entry)
+    torch.cuda.empty_cache()
+    real_launches, real = real_data_phase(errs)
+    add_real_launches(entries, real_launches, errs)
     print(f"summary ({smi}): build {build_s:.2f} s, total "
           f"{time.perf_counter() - t0:.2f} s, "
           f"frames/s {json.dumps({k: round(v, 1) for k, v in frames.items()})}, "
@@ -3425,6 +3914,7 @@ def main():
           f"serve ms {json.dumps({k: round(v, 3) for k, v in serve_lat.items()})}, "
           f"serve CLI walls s {json.dumps({k: round(v, 2) for k, v in serve_walls.items()})}, "
           f"tf32 {json.dumps({k: round(v, 6) for k, v in tf32.items()})}, "
+          f"real data {json.dumps({k: round(v, 4) for k, v in real.items()})}, "
           f"estimate profiles {json.dumps({d: {k: round(v, 3) for k, v in p.items()} for d, p in est_profile.items()})}")
     print(smi)
     print(json.dumps({"kernels": entries}))

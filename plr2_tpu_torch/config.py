@@ -17,8 +17,12 @@ Fields that the port reads differently:
 - `ModelConfig.dtype = "bfloat16"` is mixed-precision training: f32
   parameters, BN statistics and Adam state, bf16 compute
   (`DenseFusionPipeline(dtype=torch.bfloat16)`).
-- `TrainConfig.workers > 0`, `PipelineConfig.data_parallel > 1` and
-  `model_parallel > 1` raise NotImplementedError in the trainers.
+- `TrainConfig.workers > 0` feeds the trainers from the native data
+  plane in that many threads (`data/prefetch.py`);
+  `PipelineConfig.data_parallel > 1` and `model_parallel > 1` raise
+  NotImplementedError in the trainers.
+- `DatasetConfig.noise_trans` is the translation noise that both of the
+  trainers' sample iterators draw (JAX's inline iterator draws 0.03).
 - `TrainConfig.sym_slots` sizes `BatchTrainer`'s ADD-S compaction as in
   JAX; the port picks the loss's branch on the host from the samples'
   object ids, where JAX picks it on the device.

@@ -1,15 +1,17 @@
 """LineMOD evaluation CLI, the port of tools/eval_linemod.py (the
 reference's protocol: per-object ADD(-S) < 0.1 * diameter success rates):
 
-  python -m plr2_tpu_torch.tools.eval_linemod --synthetic --model DIR   # card
-  python -m plr2_tpu_torch.tools.eval_linemod --synthetic --cpu         # CPU
+  python -m plr2_tpu_torch.tools.eval_linemod --dataset_root DIR --model M   # card
+  python -m plr2_tpu_torch.tools.eval_linemod --synthetic --cpu              # CPU
 
+`--dataset_root` is a Linemod_preprocessed tree (its test split, read by
+`data/linemod.py` with no PIL or PyYAML); `--segnet_results` replaces the
+GT masks by predicted ones in the upstream layout
+(`{dir}/{obj:02d}_label/{frame:04d}_label.png`, pixel 255 = object), and
+an empty predicted mask is a lost detection that the evaluator skips.
 `--model` is a directory of the port's checkpoints (`best.pt`, as
 `python -m plr2_tpu_torch.tools.train` writes under `<outf>/linemod`);
-without it the weights are the seeded initialisation. Real LineMOD data
-(--dataset_root, or no --synthetic) waits for the loaders (ROADMAP A4),
-predicted masks (--segnet_results) for segmentation (ROADMAP A6): both
-raise NotImplementedError.
+without it the weights are the seeded initialisation.
 """
 
 from __future__ import annotations
@@ -20,12 +22,14 @@ import argparse
 def parse_args(argv=None):
     p = argparse.ArgumentParser(prog="python -m plr2_tpu_torch.tools.eval_linemod")
     p.add_argument("--dataset_root", type=str, default="",
-                   help="real LineMOD root (not ported: raises)")
+                   help="Linemod_preprocessed root (its test split)")
     p.add_argument("--model", type=str, default="",
                    help="checkpoint directory (tag 'best')")
     p.add_argument("--refine_iterations", type=int, default=4)
     p.add_argument("--segnet_results", type=str, default="",
-                   help="predicted-mask directory (not ported: raises)")
+                   help="directory of predicted masks in the upstream layout "
+                        "{dir}/{obj:02d}_label/{frame:04d}_label.png (the "
+                        "reference eval's segnet_results/); empty = GT masks")
     p.add_argument("--synthetic", action="store_true")
     p.add_argument("--max_samples", type=int, default=None)
     p.add_argument("--save_distances", type=str, default="",
@@ -46,27 +50,35 @@ def parse_args(argv=None):
 
 
 def refuse_unsupported(args) -> None:
-    if args.dataset_root or not args.synthetic:
-        raise NotImplementedError(
-            "not ported: real LineMOD data (--dataset_root; run with "
-            "--synthetic): ROADMAP A4 (linemod.py)")
-    if args.segnet_results:
-        raise NotImplementedError(
-            "not ported: --segnet_results (predicted masks): ROADMAP A6 "
-            "(segmentation)")
+    if args.synthetic == bool(args.dataset_root):
+        raise SystemExit("give --dataset_root DIR (a Linemod_preprocessed "
+                         "tree) or --synthetic: pick one")
+    if args.segnet_results and args.synthetic:
+        raise SystemExit("--segnet_results holds masks of --dataset_root's "
+                         "frames, not of --synthetic ones")
 
 
 def run(args):
     """The eval run of `args`: (EvalResult, diameters by 0-based id)."""
     refuse_unsupported(args)
     from plr2_tpu_torch.config import get_preset
-    from plr2_tpu_torch.data import SyntheticPoseDataset
+    from plr2_tpu_torch.data import LinemodDataset, SyntheticPoseDataset
     from plr2_tpu_torch.eval import evaluate
     from plr2_tpu_torch.tools.train import with_sizes
     from plr2_tpu_torch.train import CheckpointManager, Trainer
 
     cfg = with_sizes(get_preset("linemod_train"), args.num_points,
                      args.mesh_points)
+    if args.synthetic:
+        ds = SyntheticPoseDataset(num_frames=2, num_objects=2,
+                                  model_points=cfg.dataset.num_mesh_points,
+                                  num_points=cfg.model.num_points, seed=42)
+        diameters = ds.diameters
+    else:
+        ds = LinemodDataset(args.dataset_root, "test", cfg.model.num_points,
+                            cfg.dataset.num_mesh_points, add_noise=False,
+                            segnet_results=args.segnet_results or None)
+        diameters = {ds.objlist.index(o): d for o, d in ds.diameters.items()}
     trainer = Trainer(cfg, device="cpu" if args.cpu else "cuda")
     state = trainer.init_state()
     if args.model:
@@ -75,14 +87,11 @@ def run(args):
             raise SystemExit(f"no checkpoint 'best' under {args.model!r}")
         state = ckpt.restore_into(state)
         print(f"loaded checkpoint (epoch {state.epoch})")
-    ds = SyntheticPoseDataset(num_frames=2, num_objects=2,
-                              model_points=cfg.dataset.num_mesh_points,
-                              num_points=cfg.model.num_points, seed=42)
     res = evaluate(trainer.pipe, ds, sym_list=cfg.dataset.sym_list,
                    refine_iterations=args.refine_iterations,
-                   diameters=ds.diameters, max_samples=args.max_samples,
+                   diameters=diameters, max_samples=args.max_samples,
                    batch_size=args.batch_size)
-    return res, ds.diameters
+    return res, diameters
 
 
 def main(argv=None):

@@ -10,9 +10,10 @@ evaluate_poses_keyframe.m):
 Prints the per-object AUC / <2cm / mean-distance table (with 0.1*diameter
 success when the report holds diameters), and writes the curve figure
 (--out, which needs matplotlib) and the table as JSON (--json). It runs on
-the CPU: no model, only distances. YCB ground truth (--dataset_root) waits
-for the YCB loader (ROADMAP A4) and the full-pipeline frames (ROADMAP A6):
-it raises NotImplementedError.
+the CPU: no model, only distances. YCB ground truth (--dataset_root)
+needs the full-pipeline keyframes of `eval/full_pipeline.py`
+(`ycb_frames_and_models`), which wait for ROADMAP A6: it raises
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -61,8 +62,8 @@ def main(argv=None):
     else:
         if args.dataset_root:
             raise NotImplementedError(
-                "not ported: YCB ground truth for --mat_dir (--dataset_root): "
-                "ROADMAP A4 (ycb.py) and A6 (full_pipeline.py)")
+                "not ported: YCB ground truth for --mat_dir (--dataset_root) "
+                "needs ycb_frames_and_models: ROADMAP A6 (full_pipeline.py)")
         if not args.synthetic:
             p.error("--mat_dir needs --synthetic (or --dataset_root)")
         from plr2_tpu_torch.config import get_preset

@@ -4,18 +4,21 @@ of tools/serve.py:
   python -m plr2_tpu_torch.tools.serve --synthetic --num_frames 8          # card
   python -m plr2_tpu_torch.tools.serve --synthetic --batch 8               # run_frames
   python -m plr2_tpu_torch.tools.serve --synthetic --num_frames 2 --cpu    # CPU
+  python -m plr2_tpu_torch.tools.serve --dataset_root /data/YCB_Video_Dataset
 
-Streams synthetic RGB-D frames through the frame program (one CUDA graph
-per static-knob set on the card) and prints one JSON line per frame with
-the per-object poses and the wall latency of the call, the pose download
-included; the first frame of a knob set pays the warm-up and the capture.
-Frame i's key words derive from seed i in both modes, so `--batch` serves
-the same poses as single frames. `--model` is a directory of the port's
-checkpoints (`best.pt`); without it the weights are the seeded
-initialisation. YCB frames (--dataset_root) wait for the real-data loaders
-(ROADMAP A4), on-device segmentation (--seg_arch, --seg_model) for
-ROADMAP A6: both raise NotImplementedError. Without --cpu it runs on the
-CUDA card or raises.
+Streams RGB-D frames through the frame program (one CUDA graph per
+static-knob set on the card; `--eager` runs without graphs) and prints one
+JSON line per frame with the per-object poses and the wall latency of the
+call, the pose download included; the first frame of a knob set pays the
+warm-up and the capture. The frames are synthetic scenes (--synthetic), or
+the test split of a YCB-Video tree (--dataset_root: `YCBDataset.get_frame`,
+its GT label maps and the first --max_objects labelled objects, read with
+no PIL). Frame i's key words derive from seed i in both modes, so
+`--batch` serves the same poses as single frames. `--model` is a
+directory of the port's checkpoints (`best.pt`); without it the weights
+are the seeded initialisation. On-device segmentation (--seg_arch,
+--seg_model) waits for ROADMAP A6 and raises NotImplementedError. Without
+--cpu it runs on the CUDA card or raises.
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ NUM_OBJECTS = 21
 def parse_args(argv=None):
     p = argparse.ArgumentParser(prog="python -m plr2_tpu_torch.tools.serve")
     p.add_argument("--dataset_root", type=str, default="",
-                   help="YCB-Video root (not ported: raises)")
+                   help="YCB-Video root (its test split)")
     p.add_argument("--synthetic", action="store_true")
     p.add_argument("--model", type=str, default="",
                    help="checkpoint directory (tag 'best')")
@@ -55,16 +58,17 @@ def parse_args(argv=None):
     p.add_argument("--seg_model", type=str, default="",
                    help="segmenter weights (not ported: raises)")
     p.add_argument("--bf16", action="store_true")
+    p.add_argument("--eager", action="store_true",
+                   help="run the frame program eagerly (no CUDA graphs)")
     p.add_argument("--cpu", action="store_true",
                    help="run on the CPU (default: the CUDA card)")
     return p.parse_args(argv)
 
 
 def refuse_unsupported(args) -> None:
-    if args.dataset_root:
-        raise NotImplementedError(
-            "not ported: YCB-Video frames (--dataset_root; run with "
-            "--synthetic): ROADMAP A4 (ycb.py)")
+    if args.synthetic and args.dataset_root:
+        raise SystemExit("give --dataset_root DIR (a YCB-Video tree) or "
+                         "--synthetic: pick one")
     if args.seg_arch or args.seg_model:
         raise NotImplementedError(
             "not ported: on-device segmentation (--seg_arch, --seg_model): "
@@ -123,6 +127,31 @@ def synthetic_frames(num_frames: int, k: int):
                np.asarray(intr, np.float32))
 
 
+def ycb_frames(root: str, num_frames: int, k: int, num_points: int):
+    """The same tuples from the first `num_frames` frames of a YCB-Video
+    test split (tools/serve.py's frame source): the frame's first k
+    labelled objects (1-based label ids), their 500-point meshes, zeros in
+    the slots beyond."""
+    import numpy as np
+
+    from plr2_tpu_torch.data import YCBDataset
+    ds = YCBDataset(root, "test", num_points, 500, add_noise=False)
+    n_mesh = ds.get_num_points_mesh()
+    for i in range(min(num_frames, len(ds))):
+        fr = ds.get_frame(i)
+        present = sorted(fr["objects"])[:k]
+        oids = np.zeros(k, np.int64)
+        oids[:len(present)] = [o + 1 for o in present]
+        mps = np.zeros((k, n_mesh, 3), np.float32)
+        for j, o in enumerate(present):
+            mps[j] = ds.model_points[o]
+        intr = [fr["intrinsics"][n] for n in ("cx", "cy", "fx", "fy",
+                                              "cam_scale")]
+        yield (fr["color"], fr["depth"].astype(np.float32),
+               fr["label"].astype(np.int32), oids, mps,
+               np.asarray(intr, np.float32))
+
+
 def next_canvas(c: int) -> int:
     from plr2_tpu_torch.data.bbox import BORDER_LIST
     return next((b for b in BORDER_LIST if b > c), c)
@@ -138,7 +167,8 @@ def main(argv=None):
 
     pipe = build_pipeline(args)
     k = args.max_objects
-    fe = FrameEstimator(pipe, canvas=args.canvas, refine_iterations=args.iters)
+    fe = FrameEstimator(pipe, canvas=args.canvas, refine_iterations=args.iters,
+                        graphs=not args.eager)
     totals = {"dropped": 0, "oversized": 0}
 
     def emit(i, ms, oids, poses, slot0=0):
@@ -175,7 +205,8 @@ def main(argv=None):
             print(f"oversized window at canvas {fe_.canvas}: new estimator "
                   f"at {grown}", file=sys.stderr, flush=True)
             fe_ = FrameEstimator(pipe, canvas=grown,
-                                 refine_iterations=args.iters)
+                                 refine_iterations=args.iters,
+                                 graphs=not args.eager)
             poses = fe_.run(color, depth, label, oids, mps, intr, i)
             over = poses.oversized.cpu().numpy()
         emit(i, (time.perf_counter() - t0) * 1e3, oids, poses)
@@ -185,7 +216,9 @@ def main(argv=None):
     # batch) in flight and stops; a second one aborts
     served = 0
     with GracefulInterrupt() as stop:
-        frames = synthetic_frames(args.num_frames, k)
+        frames = (ycb_frames(args.dataset_root, args.num_frames, k,
+                             args.num_points) if args.dataset_root
+                  else synthetic_frames(args.num_frames, k))
         if args.batch <= 1:
             for item in frames:
                 if stop():

@@ -3,21 +3,30 @@ surface) over this package's trainers:
 
   python -m plr2_tpu_torch.tools.train --synthetic --nepoch 2          # card
   python -m plr2_tpu_torch.tools.train --synthetic --nepoch 2 --cpu    # CPU
+  python -m plr2_tpu_torch.tools.train --dataset linemod \
+      --dataset_root /data/Linemod_preprocessed --workers 4 --cache_mb 2048
+  python -m plr2_tpu_torch.tools.train --dataset ycb \
+      --dataset_root /data/YCB_Video_Dataset --workers 4
 
 Runs `Trainer` (per-sample accumulation), `FusedTrainer` (--fused) or
 `BatchTrainer` (--batched, or --data_parallel 1 as in the JAX CLI) `.fit`
-on synthetic frames, writes `best` and
-`last` checkpoints under `<outf>/<dataset>/`, resumes from `last` when it
-exists, and stops cleanly on SIGTERM / SIGINT (the first signal is a
-request that `fit` honours at the next sample or batch boundary; a second
-one aborts). The card is the default device; without CUDA it raises
-unless --cpu is given.
+on synthetic frames or on a LineMOD / YCB-Video tree (`--dataset_root`:
+the upstream layouts that `data/linemod.py` and `data/ycb.py` read, with
+no PIL or PyYAML), writes `best` and `last` checkpoints under
+`<outf>/<dataset>/`, resumes from `last` when it exists, and stops cleanly
+on SIGTERM / SIGINT (the first signal is a request that `fit` honours at
+the next sample or batch boundary; a second one aborts). The card is the
+default device; without CUDA it raises unless --cpu is given.
 
-Flags of the JAX CLI that this port does not run raise
-NotImplementedError with the ROADMAP item that brings them: real datasets
-(--dataset_root, or no --synthetic), --config (YAML), --workers > 0,
---data_parallel / --model_parallel > 1, --pretrained_trunk, --cache_mb.
-On the card --fused runs each accumulation window, and --batched each
+`--workers N` feeds the epochs from N threads of the native data plane
+(`data/prefetch.py`; 0 preprocesses inline on the device), `--cache_mb`
+caches decoded frames (`data/frame_cache.py`), and `--noise_trans` sets
+`DatasetConfig.noise_trans`, the translation noise that both sample
+iterators draw (JAX stores it on the datasets, where no path reads it,
+and draws 0.03). Flags of the JAX CLI that this port does not run raise
+NotImplementedError with the ROADMAP item that brings them: --config
+(YAML), --data_parallel / --model_parallel > 1, --pretrained_trunk. On
+the card --fused runs each accumulation window, and --batched each
 step's forward and backward, as one CUDA graph; --sym_slots sizes
 --batched mode's ADD-S compaction, as in the JAX CLI.
 """
@@ -35,17 +44,18 @@ def parse_args(argv=None):
                    help="YAML experiment config (not ported: raises)")
     p.add_argument("--dataset", choices=["ycb", "linemod"], default="linemod")
     p.add_argument("--dataset_root", type=str, default="",
-                   help="real dataset root (not ported: raises)")
+                   help="LineMOD (Linemod_preprocessed) or YCB-Video root")
     p.add_argument("--batch_size", type=int, default=8)
     p.add_argument("--workers", type=int, default=0,
-                   help="host data-plane worker threads (> 0 not ported)")
+                   help="native data-plane worker threads (0: inline)")
     p.add_argument("--lr", type=float, default=1e-4)
     p.add_argument("--lr_rate", type=float, default=0.3)
     p.add_argument("--w", type=float, default=0.015)
     p.add_argument("--w_rate", type=float, default=0.3)
     p.add_argument("--decay_margin", type=float, default=0.016)
     p.add_argument("--refine_margin", type=float, default=0.013)
-    p.add_argument("--noise_trans", type=float, default=0.03)
+    p.add_argument("--noise_trans", type=float, default=0.03,
+                   help="translation noise of the train samples (m)")
     p.add_argument("--iteration", type=int, default=2)
     p.add_argument("--nepoch", type=int, default=500)
     p.add_argument("--repeat_epoch", type=int, default=1)
@@ -75,7 +85,7 @@ def parse_args(argv=None):
     p.add_argument("--sym_slots", type=int, default=0,
                    help="batched-mode ADD-S compaction slots (-1 auto, 0 off)")
     p.add_argument("--cache_mb", type=int, default=0,
-                   help="decoded-frame cache (not ported: raises)")
+                   help="decoded-frame cache per dataset (MB, 0: off)")
     p.add_argument("--num_points", type=int, default=None,
                    help="override the preset's sampled-cloud size")
     p.add_argument("--mesh_points", type=int, default=None,
@@ -91,20 +101,17 @@ def refuse_unsupported(args) -> None:
     refused = [
         (args.config, "--config (YAML) needs config_io.py, which needs "
                       "PyYAML: ROADMAP A8"),
-        (args.dataset_root or not args.synthetic,
-         "real datasets (--dataset_root; run with --synthetic): ROADMAP A4 "
-         "(linemod.py, ycb.py)"),
-        (args.workers > 0, "--workers > 0 (the threaded data plane): "
-                           "ROADMAP A4"),
         (args.data_parallel > 1 or args.model_parallel > 1,
          "--data_parallel / --model_parallel > 1 (the mesh): ROADMAP A7"),
         (args.pretrained_trunk, "--pretrained_trunk (torch_import.py): "
                                 "ROADMAP A8"),
-        (args.cache_mb, "--cache_mb (frame_cache.py): ROADMAP A4"),
     ]
     for bad, what in refused:
         if bad:
             raise NotImplementedError(f"not ported: {what}")
+    if args.synthetic == bool(args.dataset_root):
+        raise SystemExit("give --dataset_root DIR (a LineMOD or YCB-Video "
+                         "tree) or --synthetic: pick one")
     if batched_mode(args) and args.fused:
         raise SystemExit("--fused is the exact-semantics mode; --batched / "
                          "--data_parallel is the mean-gradient deviation: "
@@ -132,9 +139,37 @@ def build_config(args):
         start_epoch=args.start_epoch, workers=args.workers,
         sym_slots=args.sym_slots, fused_accum=args.fused,
         batched_test=args.batched_test))
+    cfg = dataclasses.replace(cfg, dataset=dataclasses.replace(
+        cfg.dataset, root=args.dataset_root, noise_trans=args.noise_trans))
     if args.data_parallel:
         cfg = dataclasses.replace(cfg, data_parallel=args.data_parallel)
     return with_sizes(cfg, args.num_points, args.mesh_points)
+
+
+def build_datasets(args, cfg):
+    """(train, test) datasets: synthetic frames, or the LineMOD / YCB-Video
+    tree at --dataset_root (tools/train.py's wiring)."""
+    from plr2_tpu_torch.data import (LinemodDataset, SyntheticPoseDataset,
+                                     YCBDataset)
+    n_pts, mesh = cfg.model.num_points, cfg.dataset.num_mesh_points
+    if args.synthetic:
+        return (SyntheticPoseDataset(num_frames=args.synthetic_frames,
+                                     num_objects=2, model_points=mesh,
+                                     num_points=n_pts, seed=args.seed),
+                SyntheticPoseDataset(num_frames=max(2, args.synthetic_frames // 8),
+                                     num_objects=2, model_points=mesh,
+                                     num_points=n_pts, seed=args.seed + 1))
+    root, noise, cache = args.dataset_root, cfg.dataset.noise_trans, args.cache_mb
+    if args.dataset == "linemod":
+        return (LinemodDataset(root, "train", n_pts, mesh, noise_trans=noise,
+                               cache_mb=cache),
+                LinemodDataset(root, "test", n_pts, mesh, add_noise=False,
+                               cache_mb=cache))
+    large = cfg.dataset.num_mesh_points_large
+    return (YCBDataset(root, "train", n_pts, mesh, noise_trans=noise,
+                       num_mesh_points_large=large, cache_mb=cache),
+            YCBDataset(root, "test", n_pts, mesh, add_noise=False,
+                       num_mesh_points_large=large, cache_mb=cache))
 
 
 def with_sizes(cfg, num_points=None, mesh_points=None):
@@ -154,19 +189,12 @@ def with_sizes(cfg, num_points=None, mesh_points=None):
 def main(argv=None):
     args = parse_args(argv)
     refuse_unsupported(args)
-    from plr2_tpu_torch.data import SyntheticPoseDataset
     from plr2_tpu_torch.train import (BatchTrainer, CheckpointManager,
                                       FusedTrainer, Trainer)
     from plr2_tpu_torch.utils import GracefulInterrupt, setup_logger
 
     cfg = build_config(args)
-    n_pts, mesh = cfg.model.num_points, cfg.dataset.num_mesh_points
-    train_ds = SyntheticPoseDataset(num_frames=args.synthetic_frames,
-                                    num_objects=2, model_points=mesh,
-                                    num_points=n_pts, seed=args.seed)
-    test_ds = SyntheticPoseDataset(num_frames=max(2, args.synthetic_frames // 8),
-                                   num_objects=2, model_points=mesh,
-                                   num_points=n_pts, seed=args.seed + 1)
+    train_ds, test_ds = build_datasets(args, cfg)
     logger = setup_logger(
         "train", os.path.join(args.log_dir, f"train_{args.dataset}.log"))
     kind = (BatchTrainer if batched_mode(args)
@@ -185,7 +213,9 @@ def main(argv=None):
             state = ckpt.restore_into(state, tag="last")
             logger.info(f"auto-resumed from last checkpoint (epoch {state.epoch})")
         logger.info(f"training {args.dataset} ({kind.__name__}, "
-                    f"{trainer.device}): {len(train_ds)} train / "
+                    f"{trainer.device}, "
+                    f"{'synthetic' if args.synthetic else args.dataset_root}, "
+                    f"{args.workers} workers): {len(train_ds)} train / "
                     f"{len(test_ds)} test samples")
         trainer.fit(state, train_ds, test_ds, epochs=args.nepoch,
                     log_fn=logger.info,

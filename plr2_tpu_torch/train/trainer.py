@@ -31,9 +31,12 @@ Each sample carries its object id on the host (`Sample.obj`), so the
 loss picks its ADD-S branch without reading the device: a per-sample step
 runs ADD or ADD-S alone, as JAX's `lax.switch` does at batch 1.
 
-Unsupported settings raise NotImplementedError: `workers > 0` (the
-threaded data plane, ROADMAP A4), `data_parallel > 1` and
-`model_parallel > 1` (the mesh, ROADMAP A7). `sym_slots` sizes
+`workers > 0` feeds the epochs from the native data plane in that many
+threads (`data/prefetch.py`; real-data decode overlaps the device), as
+JAX's trainer does, but without its quiet fallback to the inline path: a
+native library that does not build stops the run with the compiler's
+output. Unsupported settings raise NotImplementedError: `data_parallel >
+1` and `model_parallel > 1` (the mesh, ROADMAP A7). `sym_slots` sizes
 `BatchTrainer`'s ADD-S compaction, as in JAX.
 
 `FusedTrainer` and `BatchTrainer` run their gradient programs as CUDA
@@ -52,6 +55,7 @@ import torch
 from plr2_tpu_torch.config import PipelineConfig
 from plr2_tpu_torch.data.bbox import BORDER_LIST
 from plr2_tpu_torch.data.loader import iterate_samples, stack_samples
+from plr2_tpu_torch.data.prefetch import iterate_prefetch_samples
 from plr2_tpu_torch.data.preprocess import Sample
 from plr2_tpu_torch.losses.add_loss import pose_loss
 from plr2_tpu_torch.losses.refine_loss import refine_loss
@@ -85,10 +89,6 @@ def sample_batch(s: Sample) -> Dict:
 
 def require_supported(config: PipelineConfig) -> None:
     """Raise NotImplementedError for settings this port does not run."""
-    if config.train.workers > 0:
-        raise NotImplementedError(
-            "workers > 0 (the threaded native data plane) is not ported: "
-            "ROADMAP A4 (prefetch.py, native/)")
     if config.data_parallel > 1 or config.model_parallel > 1:
         raise NotImplementedError(
             "data_parallel / model_parallel > 1 (the mesh trainers) are not "
@@ -203,11 +203,23 @@ class Trainer:
     def _sample_iter(self, dataset, generator: torch.Generator,
                      add_noise: bool, shuffle: bool, seed: int):
         """The per-sample iterator (a method, so a caller may feed other
-        samples); preprocessing runs on the pipeline's device."""
+        samples). With `TrainConfig.workers == 0`, `iterate_samples`:
+        preprocessing on the pipeline's device, the choose sampling there
+        too. With `workers > 0`, `iterate_prefetch_samples`: that many
+        threads decode and run the native data plane (its own choose
+        stream), the augmentation runs on the pipeline's device; if the
+        native library cannot be built, the first sample raises (there is
+        no quiet fallback to the inline path). Both draw the translation
+        noise at `DatasetConfig.noise_trans`."""
+        kw = dict(add_noise=add_noise, noise_trans=self.cfg.dataset.noise_trans,
+                  shuffle=shuffle, seed=seed, device=self.device)
+        workers = self.cfg.train.workers
+        if workers > 0:
+            return iterate_prefetch_samples(dataset, generator,
+                                            self.cfg.model.num_points,
+                                            num_workers=workers, **kw)
         return iterate_samples(dataset, generator, self.cfg.model.num_points,
-                               add_noise=add_noise,
-                               noise_trans=self.cfg.dataset.noise_trans,
-                               shuffle=shuffle, seed=seed, device=self.device)
+                               **kw)
 
     @staticmethod
     def _epoch_info(losses, dists, t0: float, interrupted: bool) -> Dict:

@@ -161,24 +161,28 @@ def test_initial_pose_first_index_wins_ties():
 
 
 def test_import_hygiene_no_jax_no_reference_package():
-    """The port (every module of it, the eval modules and CLIs included)
-    and chip_smoke.py import neither jax nor flax nor any plr2_tpu module,
+    """The port (every module of it, the eval modules, CLIs and the
+    real-data loaders included) and chip_smoke.py import neither jax nor
+    flax nor any plr2_tpu module, nor PIL or PyYAML (the card's host has
+    neither),
     read no .msgpack checkpoint, and leave matplotlib unimported (the card's
     host has none; the report imports it inside the plotting function)."""
     code = (
         "import sys\n"
-        "for m in ('jax', 'flax', 'plr2_tpu'):\n"
+        "for m in ('jax', 'flax', 'plr2_tpu', 'PIL', 'yaml'):\n"
         "    sys.modules[m] = None\n"
         "import importlib, pkgutil, plr2_tpu_torch, chip_smoke\n"
         "for m in pkgutil.walk_packages(plr2_tpu_torch.__path__, 'plr2_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'flax', 'plr2_tpu') and sys.modules[m] is not None]\n"
+        "('jax', 'flax', 'plr2_tpu', 'PIL', 'yaml') and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"
         "for m in ('ops.quant', 'ops.gather', 'eval', 'eval.metrics',\n"
         "          'eval.evaluator', 'eval.report', 'tools.eval_linemod',\n"
         "          'tools.infer', 'tools.eval_precision_modes',\n"
-        "          'tools.plot_accuracy'):\n"
+        "          'tools.plot_accuracy', 'native', 'data.codecs',\n"
+        "          'data.frame_cache', 'data.linemod', 'data.ycb',\n"
+        "          'data.posecnn', 'data.prefetch'):\n"
         "    assert 'plr2_tpu_torch.' + m in sys.modules, m\n"
         "assert 'matplotlib' not in sys.modules\n"
         "print('ok')\n")
@@ -191,6 +195,8 @@ def test_import_hygiene_no_jax_no_reference_package():
         text = path.read_text()
         assert "msgpack" not in text, path
         assert "import jax" not in text and "from jax" not in text, path
+        for mod in ("PIL", "yaml"):
+            assert f"import {mod}" not in text and f"from {mod} " not in text, path
         assert "plr2_tpu." not in text.replace("plr2_tpu_torch", ""), path
 
 

@@ -4,7 +4,8 @@ train run): `CheckpointManager` save -> restore_into is exact, tags are
 independent, a stop mid-window rolls the BatchNorm statistics back and
 saves `last`, BatchTrainer stops at a batch boundary, and
 `python -m plr2_tpu_torch.tools.train --synthetic --cpu` writes `best` and
-`last`, resumes from `last` and refuses every flag the port does not run.
+`last`, resumes from `last` and refuses every flag the port does not run
+(the real-data flags run in tests/test_torch_port_real_cli.py).
 """
 
 import dataclasses
@@ -234,13 +235,13 @@ def test_batch_trainer_pads_the_tail_batch_by_cycling(tiny):
 
 
 def test_trainers_refuse_what_the_port_does_not_run():
-    for cfg in (tiny_config(workers=2),
-                dataclasses.replace(tiny_config(), data_parallel=2),
+    for cfg in (dataclasses.replace(tiny_config(), data_parallel=2),
                 dataclasses.replace(tiny_config(), model_parallel=2)):
         with pytest.raises(NotImplementedError, match="ROADMAP A"):
             Trainer(cfg, device="cpu")
-    # sym_slots is accepted (a no-op)
+    # sym_slots and workers (the native data plane) are accepted
     Trainer(tiny_config(sym_slots=4), pipe=DenseFusionPipeline(8, 2, device="cpu"))
+    Trainer(tiny_config(workers=2), pipe=DenseFusionPipeline(8, 2, device="cpu"))
 
 
 def test_trainer_defaults_to_cuda_and_has_no_cpu_fallback():
@@ -279,13 +280,19 @@ def test_cli_writes_best_and_last_then_resumes_from_last(tmp_path):
 
 @pytest.mark.parametrize("flags", [
     ["--config", "configs/x.yml"], ["--dataset_root", "/data"], [],
-    ["--workers", "2"], ["--data_parallel", "2"], ["--model_parallel", "2"],
-    ["--pretrained_trunk", "r18.pth"], ["--cache_mb", "64"]],
-    ids=["config", "dataset_root", "no_synthetic", "workers", "data_parallel",
-         "model_parallel", "pretrained_trunk", "cache_mb"])
+    ["--data_parallel", "2"], ["--model_parallel", "2"],
+    ["--pretrained_trunk", "r18.pth"]],
+    ids=["config", "dataset_root", "no_synthetic", "data_parallel",
+         "model_parallel", "pretrained_trunk"])
 def test_cli_refuses_unsupported_flags(flags, tmp_path):
+    """Flags that wait for another item raise NotImplementedError naming
+    it; --synthetic beside --dataset_root, or neither, exits (pick one)."""
     base = [] if flags == [] else ["--synthetic"]
-    with pytest.raises(NotImplementedError, match="not ported: .*ROADMAP A"):
+    if flags == [] or flags[0] == "--dataset_root":
+        exc, match = SystemExit, "--dataset_root DIR .* or --synthetic: pick one"
+    else:
+        exc, match = NotImplementedError, "not ported: .*ROADMAP A"
+    with pytest.raises(exc, match=match):
         cli.main(base + ["--cpu", "--outf", str(tmp_path), *flags])
     assert not os.listdir(tmp_path)
 

@@ -452,11 +452,12 @@ def test_refusals():
              np.zeros((1, 8, 3), np.float32), np.ones(5, np.float32))
     with pytest.raises(NotImplementedError, match="A6"):
         fe.run(*frame, 0, seg_variables={})
-    for argv in (["--synthetic", "--dataset_root", "/data/ycb"],
-                 ["--synthetic", "--seg_arch", "pspnet"],
+    for argv in (["--synthetic", "--seg_arch", "pspnet"],
                  ["--synthetic", "--seg_model", "seg.msgpack"]):
-        with pytest.raises(NotImplementedError, match="A4|A6"):
+        with pytest.raises(NotImplementedError, match="ROADMAP A6"):
             serve.main(argv)
+    with pytest.raises(SystemExit, match="pick one"):
+        serve.main(["--synthetic", "--dataset_root", "/data/ycb"])
 
 
 def test_serve_cli_runs_on_cuda_or_raises(monkeypatch):
