@@ -161,7 +161,7 @@ non-zero, and there is no CPU fallback:
    at batch TRAIN_BATCH, f32, stage 1: gradients and BN bit-equal, the
    step's peak memory above the state (must be lower) and step ms.
 
-21. real data (last): the real-data path (plr2_tpu_torch/data/{codecs,
+21. real data: the real-data path (plr2_tpu_torch/data/{codecs,
    linemod, ycb, prefetch}.py, plr2_tpu_torch/native) on the card, with no
    PIL and no PyYAML. Writes a LineMOD tree at 480 x 640 (ape and the
    symmetric eggbox, 8 train and 2 test frames each; PNGs by the port's
@@ -182,6 +182,38 @@ non-zero, and there is no CPU fallback:
    report keys the tree's objects), train --dataset ycb, serve
    --dataset_root eager and with graphs, infer on one frame; every kernel
    against its plain version at the real crops' shapes.
+
+22. segmentation (last): the segmentation slice and the config-5 full
+   pipeline (plr2_tpu_torch/models/segnet.py, train/seg_trainer.py,
+   eval/{segment,full_pipeline}.py, the segmenter inside serving.py's
+   graph) at YCB's 22 classes on 480 x 640 frames. Kernel 2 on the PSPNet
+   segmenter's three decoder stages at full-frame shapes (60 x 80 x 1024
+   -> 480 x 640 x 64; F = 1 and 8, and a 484 x 644 frame padded to 512 x
+   672), f32 and bf16, against its plain version, and its time at F = 1
+   and 8 beside the plain version, cuDNN's interpolate + conv2d + prelu
+   and the bound; SegNet (VGG16 widths) at 480 x 640 run twice bit-equal,
+   a frame of one colour included (every unpool window ties), and the
+   PSPNet segmenter through the kernels against its plain versions, f32
+   and bf16; each segmenter's frames/s at F = 1 and 8; 3 SegTrainer steps
+   of each architecture at 128 px crops, batch 3 (finite, falling loss),
+   the pspnet ones also through the plain versions from one state (loss
+   1e-5 relative, parameters 1e-3 relative L2) and the step's ms;
+   FrameEstimator with each segmenter at seg_scale 1 and 2, f32 and bf16
+   (K = 5, canvas 240, 4 refine iterations): an eager run's launches
+   (added to the kernels line as "segmentation"), two replays bit-equal
+   to it, the labels at s = 1 equal to SegTrainer.predict's, frames/s
+   eager and graph; evaluate_full_pipeline on 4 make_scene frames of 5
+   objects with GT masks (host vs device mode: the same lost detections,
+   distances within the estimate's gate; frames/s of both), with SegNet
+   masks (a narrow SegNet with weights that label the scene colours: the
+   segmenter inside the device program equal to device mode fed its
+   labels, and host vs device where both cut the same window), with
+   PoseCNN ROI results (lost and extra detections), and a .mat export read
+   back by `tools.plot_accuracy --mat_dir --synthetic` (the same table as
+   in the process); the CLIs as processes with walls: train_segmentation,
+   eval_ycb --full_pipeline --save_mat and serve --seg_arch pspnet
+   --seg_scale 2 at once, then segment_linemod on phase 21's LineMOD tree
+   and eval_linemod --segnet_results on its masks.
 
 The second-to-last line is a JSON object with one entry per kernel and
 dtype; the last line is {"ok": true, "device": {...}}.
@@ -3854,6 +3886,533 @@ def add_real_launches(entries, seen, errs):
             e["max_abs_err"] = max(e["max_abs_err"], errs[(kname, "f32")])
 
 
+# ---------------- segmentation and the config-5 full pipeline (phase 22) ----
+
+# YCB's 22 classes (21 objects + background) on 480 x 640 frames; the
+# PSPNet segmenter's decoder stages at a padded frame (hp, wp): (h, w, Cin,
+# Cout) of each stage's low-res input; F frames a call
+SEG_CLASSES, SEG_H, SEG_W, SEG_F = NUM_OBJ + 1, 480, 640, (1, 8)
+# a frame that fills no tile: _segment pads 484 x 644 to 512 x 672
+SEG_ODD = (484, 644)
+# SegTrainer steps (the reference's batch 3 of 128 px crops) and the
+# kernels-vs-plain gates of a pspnet step from one state: loss relative,
+# parameters in relative L2 over the network (EPOCH_TOL's reasons)
+SEG_CROP, SEG_BATCH, SEG_STEPS = 128, 3, 3
+SEG_STEP_TOL = {"loss": 1e-5, "param_l2": 1e-3}
+# the PSPNet segmenter through the kernels vs through the plain versions:
+# f32 logits at TOL; bf16 labels must agree on this share of the pixels
+# (the decoder's bf16 roundings flip near-tied logits)
+SEG_BF16_AGREE = 0.99
+# the full pipeline: make_scene frames of SERVE_K objects, 4 refine
+# iterations; host vs device distances within the estimate's f32 gate. Its
+# SegNet masks come from SegNet at two narrow blocks with weights set to
+# label the scene colours (`colour_segnet_state`): at VGG16's five levels a
+# decoder pixel holds the per-channel maxima of a 32 x 32 region, which no
+# choice of weights turns back into that pixel's colour
+SEG_FRAMES = 4
+SEG_COLOUR_BLOCKS = ((1, 8), (1, 16))
+
+
+def seg_stages(hp, wp):
+    """The decoder stages of the PSPNet segmenter on an (hp, wp) frame."""
+    return {"up_1": (hp // 8, wp // 8, 1024, 256), "up_2": (hp // 4, wp // 4, 256, 64),
+            "up_3": (hp // 2, wp // 2, 64, 64)}
+
+
+def seg_frame_tensor(frames):
+    """(F, H, W, 3) uint8 on the card."""
+    return torch.from_numpy(np.stack([f.color for f in frames])).to(DEVICE)
+
+
+def colour_segnet_state(num_classes, blocks):
+    """A SegNet state dict whose labels are the scene colours: every conv
+    is its centre tap carrying the normalised colour + 2 in channels 0-2
+    (positive, so the ReLUs pass it), each decoder block's first BatchNorm
+    scales by 4 (the unpool writes y / 4 in a flat window), and the
+    classifier scores class k by the cosine with c_k + 2 (c_k:
+    make_scene's colour of object k, grey 30 for the background), so a
+    flat object is labelled with its id and the scale of an edge pixel
+    changes no label. Random weights paint every object with one class."""
+    from plr2_tpu_torch.models.segnet import SegNet
+    ids = np.arange(num_classes)
+    cols = np.stack([(ids * 67) % 200 + 55, (ids * 131) % 200 + 55,
+                     (ids * 29) % 200 + 55], 1)
+    cols[0] = 30
+    cols = torch.tensor(cols, dtype=torch.float32) / 255.0 * 2 - 1
+    net = SegNet(num_classes, blocks)
+    state = {k: torch.zeros_like(v) for k, v in net.state_dict().items()}
+    firsts = {f"dec{bi}_0" for bi in range(len(blocks))}
+    for name in {k.split(".")[0] for k in state if not k.startswith("classifier")}:
+        w = state[f"{name}.conv.weight"]
+        w[:3, :3, 1, 1] = torch.eye(3)
+        if name == "enc0_0":
+            state[f"{name}.conv.bias"][:3] = 2.0
+        state[f"{name}.bn.weight"].fill_(4.0 if name in firsts else 1.0)
+        state[f"{name}.bn.running_var"].fill_(1.0)
+    direction = cols + 2
+    state["classifier.weight"][:, :3, 1, 1] = direction / direction.norm(dim=1, keepdim=True)
+    return state
+
+
+def seg_trainer_on(model, arch):
+    """A SegTrainer whose segmenter is `model` (its predict and steps)."""
+    from plr2_tpu_torch.train.seg_trainer import SegTrainer
+    tt = SegTrainer(num_classes=SEG_CLASSES, crop=SEG_CROP, batch=SEG_BATCH,
+                    arch=arch, device=DEVICE)
+    tt.model = model
+    return tt
+
+
+def seg_kernel_checks(errs, gen):
+    """Kernel 2 on the PSPNet segmenter's three stages at full-frame shapes
+    (F = 1 and 8 at 480 x 640, F = 1 at the padded 484 x 644 frame), f32
+    and bf16, against its plain version; its time at 480 x 640 beside
+    the plain version, cuDNN's interpolate + conv2d + prelu chain and the
+    bound. Returns {dtype: {F: totals of the three stages}}."""
+    from plr2_tpu_torch.ops import upconv
+    hp, wp = (-(-s // 32) * 32 for s in SEG_ODD)
+    table = {}
+    for dt_name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        item = torch.empty((), dtype=dtype).element_size()
+        table[dt_name] = {}
+        for f, (fh, fw) in ((1, (SEG_H, SEG_W)), (8, (SEG_H, SEG_W)), (1, (hp, wp))):
+            frame_shape = (fh, fw) == (SEG_H, SEG_W)
+            tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "flops": 0, "bytes": 0}
+            for name, (h, w, cin, cout) in seg_stages(fh, fw).items():
+                args = (_rand((f, h, w, cin), gen, 1.0, dtype),
+                        _rand((3, 3, cin, cout), gen, (9 * cin) ** -0.5, dtype),
+                        _rand((cout,), gen, 0.1, dtype),
+                        torch.full((1,), 0.25, device=DEVICE, dtype=dtype))
+                got = upconv.upconv3x3_prelu(*args)
+                torch.cuda.synchronize()
+                e = compare(f"upconv3x3_prelu {dt_name} segmenter {name} at a {fh} x {fw} "
+                            f"frame {tuple(args[0].shape)}->{cout}", got,
+                            upconv.upconv3x3_prelu_plain(*args), TOL[dt_name])
+                errs[("upconv3x3_prelu", dt_name)] = max(errs[("upconv3x3_prelu", dt_name)], e)
+                del got
+                if frame_shape:
+                    k = time_ms(lambda: upconv.upconv3x3_prelu(*args), 5)
+                    p = time_ms(lambda: upconv.upconv3x3_prelu_plain(*args), 3)
+                    lib = time_ms(lambda: upconv_library(*args), 5)
+                    fl = upconv.flops(f, h, w, cin, cout)
+                    by = item * (f * h * w * cin + 9 * cin * cout + cout + 1
+                                 + f * 4 * h * w * cout)
+                    print(f"    {name} F = {f} {dt_name}: kernel {k:.3f} ms "
+                          f"({fl / k / 1e9:.1f} TFLOP/s), plain {p:.3f} ms, cuDNN "
+                          f"chain {lib:.3f} ms")
+                    for key, v in (("ms", k), ("plain_ms", p), ("library_ms", lib),
+                                   ("flops", fl), ("bytes", by)):
+                        tot[key] += v
+                del args
+                torch.cuda.empty_cache()
+            if frame_shape:
+                tot["bound_ms"], tot["bound_by"] = bound_of(tot, dt_name)
+                table[dt_name][f] = tot
+                print(f"  decoder of the segmenter, {dt_name}, F = {f} at {SEG_H} x {SEG_W}: "
+                      f"kernel {tot['ms']:.3f} ms ({tot['flops'] / f / 1e9:.1f} GFLOP a "
+                      f"frame, {tot['flops'] / tot['ms'] / 1e9:.1f} TFLOP/s), plain "
+                      f"{tot['plain_ms']:.3f} ms, cuDNN chain {tot['library_ms']:.3f} ms, "
+                      f"bound {tot['bound_ms']:.4f} ms ({tot['bound_by']})")
+    return table
+
+
+def seg_forward_checks(scenes, timings):
+    """SegNet at 480 x 640 x 22 classes against itself run twice (bit-equal;
+    a frame of one colour included, where every unpool window ties) and
+    the PSPNet segmenter through the kernels against use_kernels=False,
+    f32 and bf16; the segmenters' frames/s at F = 1 and 8."""
+    from plr2_tpu_torch.models.segnet import build_segmenter
+    from plr2_tpu_torch.pipeline import full_f32
+    from plr2_tpu_torch.data.preprocess import normalize_frames
+    colors = seg_frame_tensor([s[0] for s in scenes[:SEG_F[-1]]])
+    flat = colors[:2].clone()
+    flat[1] = torch.tensor([90, 140, 200], dtype=torch.uint8, device=DEVICE)
+    x8 = normalize_frames(colors)
+    for dt_name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        with torch.no_grad(), full_f32(dtype == torch.float32):
+            seg = build_segmenter("segnet", SEG_CLASSES, dtype=dtype, device=DEVICE, seed=3)
+            xf = normalize_frames(flat)
+            a, b = seg(xf), seg(xf)
+            same = torch.equal(a, b)
+            print(f"  SegNet {dt_name} at {SEG_H} x {SEG_W} x {SEG_CLASSES} (a scene and a "
+                  f"frame of one colour): finite {bool(torch.isfinite(a).all())}, two runs "
+                  f"bit-equal {same}")
+            if not same or not bool(torch.isfinite(a).all()):
+                raise AssertionError(f"segmentation: SegNet {dt_name} is not repeatable")
+            psp = build_segmenter("pspnet", SEG_CLASSES, dtype=dtype, device=DEVICE, seed=4)
+            plain = build_segmenter("pspnet", SEG_CLASSES, dtype=dtype, device=DEVICE,
+                                    seed=None, use_kernels=False)
+            plain.load_state_dict(psp.state_dict())
+            got, ref = psp(x8[:2]), plain(x8[:2])
+            torch.cuda.synchronize()
+            agree = float((got.argmax(-1) == ref.argmax(-1)).float().mean())
+            if dt_name == "f32":
+                compare("PSPNet segmenter f32 logits, kernels vs plain versions", got, ref,
+                        TOL["f32"])
+            else:
+                print(f"  PSPNet segmenter bf16, kernels vs plain versions: max |d| "
+                      f"{float((got.float() - ref.float()).abs().max()):.3e}, labels agree on "
+                      f"{agree * 100:.3f}% (gate {SEG_BF16_AGREE * 100:g}%)")
+                if agree < SEG_BF16_AGREE:
+                    raise AssertionError("segmentation: bf16 PSPNet segmenter labels disagree")
+            del got, ref, plain
+            for arch, model in (("segnet", seg), ("pspnet", psp)):
+                for f in SEG_F:
+                    ms = time_ms(lambda: model(x8[:f]), 3, warmup=1)
+                    timings[f"segmenter_{arch}_{dt_name}_f{f}_frames_per_s"] = f * 1e3 / ms
+                    print(f"  {arch} segmenter {dt_name} F = {f}: {ms:.3f} ms = "
+                          f"{f * 1e3 / ms:.1f} frames/s")
+            del seg, psp
+            torch.cuda.empty_cache()
+
+
+def seg_train_checks(scenes, timings):
+    """SEG_STEPS SegTrainer steps at 128 px crops, batch 3, of each
+    architecture on one batch (finite, falling loss); the pspnet steps
+    once through the kernels and once through the plain versions from one
+    state and the same dropout masks; step ms."""
+    from plr2_tpu_torch.data.preprocess import normalize_frames
+    from plr2_tpu_torch.train.seg_trainer import SegTrainer, frame_crops, step_generator
+    img, lab = next(frame_crops([s[0] for s in scenes], SEG_CROP, SEG_BATCH,
+                                np.random.default_rng(0)))
+    x = normalize_frames(torch.from_numpy(img).to(DEVICE))
+    y = torch.from_numpy(lab.astype(np.int64)).to(DEVICE)
+    for arch in ("segnet", "pspnet"):
+        runs = {}
+        for kern in ((True, False) if arch == "pspnet" else (True,)):
+            tt = SegTrainer(num_classes=SEG_CLASSES, crop=SEG_CROP, batch=SEG_BATCH,
+                            arch=arch, device=DEVICE, use_kernels=kern)
+            state = tt.init_state(5)
+            losses = [float(tt.train_step(state, x, y, step_generator(1, i)))
+                      for i in range(SEG_STEPS)]
+            runs[kern] = (losses, torch.cat([p.detach().flatten() for p in tt.model.parameters()]))
+            if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+                raise AssertionError(f"segmentation: {arch} steps {losses}")
+            if kern:
+                ms = time_ms(lambda: tt.train_step(state, x, y, step_generator(1, 9)), 3)
+                timings[f"seg_train_step_{arch}_ms"] = ms
+            print(f"  SegTrainer {arch} ({'kernels' if kern else 'plain versions'}), "
+                  f"{SEG_STEPS} steps at {SEG_CROP} px, batch {SEG_BATCH}: losses "
+                  f"{[round(v, 6) for v in losses]}"
+                  + (f"; a step {timings[f'seg_train_step_{arch}_ms']:.3f} ms" if kern else ""))
+            del tt, state
+        if arch == "pspnet":
+            (lk, pk), (lp, pp) = runs[True], runs[False]
+            dl = max(abs(a - b) / abs(b) for a, b in zip(lk, lp))
+            dp = float((pk - pp).norm() / pp.norm())
+            ok = dl <= SEG_STEP_TOL["loss"] and dp <= SEG_STEP_TOL["param_l2"]
+            print(f"  pspnet steps, kernels vs plain versions from one state: loss "
+                  f"{dl:.3e} relative (tol {SEG_STEP_TOL['loss']:g}), parameters "
+                  f"{dp:.3e} relative L2 (tol {SEG_STEP_TOL['param_l2']:g}) "
+                  f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError("segmentation: pspnet steps disagree with the plain versions")
+    torch.cuda.empty_cache()
+
+
+def seg_serve_checks(scenes, timings):
+    """FrameEstimator with each segmenter at seg_scale 1 and 2, f32 and
+    bf16 (K = 5, canvas 240, 4 refine iterations): the launches of an
+    eager run, the graph's replays bit-equal to the eager run, the labels
+    at s = 1 equal to SegTrainer.predict's; frames/s eager and replay.
+    Returns the launches by dtype."""
+    from plr2_tpu_torch import DenseFusionPipeline
+    from plr2_tpu_torch.models.segnet import build_segmenter
+    from plr2_tpu_torch.ops import launch_counts, reset_launch_counts
+    from plr2_tpu_torch.serving import FrameEstimator
+    from plr2_tpu_torch.data.preprocess import normalize_frames
+    frame, models, depth = scenes[0]
+    ids = np.arange(1, SERVE_K + 1)
+    inputs, _, _ = serve_inputs(frame, models, depth, ids)
+    launches = {}
+    for dt_name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        pipe = DenseFusionPipeline(SERVE_POINTS, NUM_OBJ, device=DEVICE, seed=0)
+        if dtype != torch.float32:
+            pipe.cast(dtype)
+        total = counts()
+        for arch in ("segnet", "pspnet"):
+            seg = build_segmenter(arch, SEG_CLASSES, dtype=dtype, device=DEVICE, seed=1)
+            for s in (1, 2):
+                kw = dict(canvas=SERVE_CANVAS, img_h=depth.shape[0], img_w=depth.shape[1],
+                          refine_iterations=SERVE_ITERS, seg_model=seg, seg_scale=s)
+                eager = FrameEstimator(pipe, graphs=False, **kw)
+                reset_launch_counts()
+                e = eager.run(*inputs, 7)
+                torch.cuda.synchronize()
+                seen = launch_counts()
+                want = counts(mlp_head=3, upconv3x3_prelu=3 + 3 * (arch == "pspnet"))
+                if seen != want:
+                    raise AssertionError(f"segmentation: {arch} s={s} {dt_name} eager "
+                                         f"launches {seen}, expected {want}")
+                for k, v in seen.items():
+                    total[k] += v
+                graph = FrameEstimator(pipe, **kw)
+                g1, g2 = graph.run(*inputs, 7), graph.run(*inputs, 7)
+                same = all(torch.equal(a, b) and torch.equal(a, c)
+                           for a, b, c in zip(e, g1, g2))
+                labels_ok = None
+                if s == 1:
+                    labels = eager._segment(inputs[0][None])
+                    pred = seg_trainer_on(seg, arch).predict(normalize_frames(inputs[0][None]))
+                    labels_ok = torch.equal(labels, pred.to(torch.int32))
+                rates = {}
+                for mode, fe in (("eager", eager), ("graph", graph)):
+                    ms = time_ms(lambda: fe.run(*inputs, 7), 5, warmup=1)
+                    rates[mode] = 1e3 / ms
+                    timings[f"serve_seg_{arch}_s{s}_{mode}_{dt_name}_frames_per_s"] = 1e3 / ms
+                print(f"  FrameEstimator + {arch} segmenter, seg_scale {s}, {dt_name}: eager "
+                      f"launches {seen['mlp_head']} mlp_head + {seen['upconv3x3_prelu']} "
+                      f"upconv3x3_prelu; replays bit-equal to eager {same}; "
+                      + ("" if labels_ok is None else
+                         f"labels equal to SegTrainer.predict {labels_ok}; ")
+                      + f"valid {e.valid.tolist()}; frames/s eager {rates['eager']:.1f}, "
+                      f"graph {rates['graph']:.1f}")
+                if not same or labels_ok is False:
+                    raise AssertionError(f"segmentation: {arch} s={s} {dt_name} serving")
+                del eager, graph
+                torch.cuda.empty_cache()
+            del seg
+        launches[dt_name] = total
+        del pipe
+    return launches
+
+
+def seg_pipeline_checks(scenes, timings, tmp):
+    """evaluate_full_pipeline on SEG_FRAMES make_scene frames of SERVE_K
+    objects: GT masks in host and device mode (the same lost detections,
+    distances within the estimate's gate); SegNet masks (colour weights)
+    inside the device program against device mode fed the same label
+    maps (equal), and against host mode (gated where both modes cut the
+    same window: host mode snaps it from the mask's largest component,
+    device mode from the whole mask, and the splatted scenes' masks carry
+    stray pixels);
+    PoseCNN ROI results; the .mat export read back by `tools.plot_accuracy
+    --mat_dir --synthetic`; frames/s of both modes."""
+    import types
+    import scipy.io as sio
+    from plr2_tpu_torch import DenseFusionPipeline
+    from plr2_tpu_torch.config import get_preset
+    from plr2_tpu_torch.data import SyntheticPoseDataset, get_bbox_from_mask
+    from plr2_tpu_torch.data.linemod import largest_component_mask
+    from plr2_tpu_torch.data.posecnn import PoseCNNMasks
+    from plr2_tpu_torch.eval.full_pipeline import evaluate_full_pipeline
+    from plr2_tpu_torch.eval.segment import segment_frame
+    from plr2_tpu_torch.eval.report import accuracy_table
+    from plr2_tpu_torch.models.segnet import SegNet
+    from plr2_tpu_torch.ops import launch_counts, reset_launch_counts
+    all_frames, models = [], {}
+    for fr, mods, depth in scenes:
+        all_frames.append(types.SimpleNamespace(
+            color=fr.color, depth=depth, label=fr.label, poses=dict(fr.poses),
+            intrinsics=fr.intrinsics))
+        models.update(mods)
+    frames = all_frames[:SEG_FRAMES]
+    pipe = DenseFusionPipeline(SERVE_POINTS, NUM_OBJ, device=DEVICE, seed=0)
+    run = lambda frames=frames, **kw: evaluate_full_pipeline(  # noqa: E731
+        pipe, frames, models, SYM_LIST, refine_iterations=SERVE_ITERS,
+        crop_canvas=SERVE_CANVAS, **kw)
+
+    def gate(what, a, b, keys=None):
+        """a vs b: lost detections equal (over `keys`, (object, visit), where
+        given) and finite distances within the gate."""
+        worst, lost = 0.0, 0
+        for o, d in a.per_object_distances.items():
+            for i, (x, y) in enumerate(zip(d, b.per_object_distances[o])):
+                if keys is not None and (o, i) not in keys:
+                    continue
+                if math.isinf(x) != math.isinf(y):
+                    raise AssertionError(f"segmentation: {what}: object {o} lost in one mode")
+                lost += math.isinf(x)
+                if math.isfinite(x):
+                    worst = max(worst, abs(x - y))
+        ok = ((keys is not None or a.lost_detections == b.lost_detections)
+              and worst <= POSE_TOL["f32"])
+        print(f"  {what}: lost {a.lost_detections} / {b.lost_detections} of "
+              f"{a.num_objects} ({lost} of the compared, in both), max |d dis| "
+              f"{worst:.3e} m (gate {POSE_TOL['f32']:g}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"segmentation: {what} disagree")
+
+    reset_launch_counts()
+    host = run()
+    torch.cuda.synchronize()
+    seen = launch_counts()
+    if seen != counts(mlp_head=3 * SEG_FRAMES, upconv3x3_prelu=3 * SEG_FRAMES):
+        raise AssertionError(f"segmentation: host-mode full pipeline launches {seen}")
+    device = run(device_pipeline=True)
+    gate("full pipeline, GT masks, host vs device mode", host, device)
+    # frames/s over all the scenes, each mode twice in turns; a device-mode
+    # call builds its FrameEstimator, so its figure holds one capture
+    rates = {"host": [], "device": []}
+    for mode in ("host", "device", "device", "host"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(all_frames, device_pipeline=mode == "device")
+        torch.cuda.synchronize()
+        rates[mode].append(len(all_frames) / (time.perf_counter() - t0))
+    for mode, r in rates.items():
+        timings[f"full_pipeline_{mode}_frames_per_s"] = sum(r) / len(r)
+    print(f"  full pipeline frames/s (GT masks, {len(all_frames)} frames of {SERVE_K} objects, "
+          f"{SERVE_ITERS} refine iterations, f32; modes in turns host, device, device, host; "
+          f"a device-mode call captures its graph once): host "
+          f"{' / '.join(f'{v:.2f}' for v in rates['host'])}, device "
+          f"{' / '.join(f'{v:.2f}' for v in rates['device'])}")
+
+    seg = SegNet(SEG_CLASSES, SEG_COLOUR_BLOCKS).to(DEVICE).eval()
+    seg.load_state_dict(colour_segnet_state(SEG_CLASSES, SEG_COLOUR_BLOCKS))
+    tt = seg_trainer_on(seg, "segnet")
+    preds = [segment_frame(tt, f.color) for f in frames]
+    acc = float(np.mean([(p == f.label).mean() for p, f in zip(preds, frames)]))
+
+    def windows(p, f, o):
+        h, w = p.shape
+        m = p == o
+        return (get_bbox_from_mask(largest_component_mask(m), h, w) if m.any() else None,
+                get_bbox_from_mask(m & (f.depth > 0), h, w) if m.any() else None)
+    same_window = {(o, fi) for fi, (p, f) in enumerate(zip(preds, frames)) for o in f.poses
+                   if len(set(windows(p, f, o))) == 1}
+    keys = {(o, sum(1 for j in range(fi) if o in frames[j].poses))
+            for o, fi in same_window}
+    seg_host = run(seg_predict=lambda c: segment_frame(tt, c))
+    seg_dev = run(device_pipeline=True, seg_model=seg)
+    maps = iter(preds)
+    seg_fed = run(device_pipeline=True, seg_predict=lambda c: next(maps))
+    inside = (seg_dev.per_object_distances == seg_fed.per_object_distances
+              and seg_dev.lost_detections == seg_fed.lost_detections)
+    print(f"  SegNet masks (two narrow blocks, colour weights): pixel accuracy {acc:.4f}; "
+          f"device mode with the segmenter in its graph equal to device mode fed its "
+          f"label maps {inside} (lost {seg_dev.lost_detections}); "
+          f"{len(same_window)} of {sum(len(f.poses) for f in frames)} objects get the "
+          f"same window in host and device mode")
+    if not inside or not same_window:
+        raise AssertionError("segmentation: SegNet masks in device mode")
+    gate("full pipeline, SegNet masks, host vs device mode (the same windows)",
+         seg_host, seg_dev, keys)
+
+    # PoseCNN results: the first object of every frame undetected, and a
+    # detection of a class with no mesh (extra, not estimated)
+    pc = tmp / "posecnn"
+    pc.mkdir()
+    for fi, f in enumerate(frames):
+        rois = []
+        for o in sorted(f.poses)[1:]:
+            ys, xs = np.nonzero(f.label == o)
+            rois.append([0, o, xs.min() - 1, ys.min() - 1, xs.max() + 2, ys.max() + 2])
+        rois.append([0, NUM_OBJ, 10, 10, 60, 60])
+        sio.savemat(pc / f"{fi:06d}.mat", {"labels": f.label.astype(np.int32),
+                                           "rois": np.asarray(rois, np.float32)})
+    roi = run(seg_predict=PoseCNNMasks(str(pc)))
+    ok = (roi.lost_detections == SEG_FRAMES and roi.extra_detections == SEG_FRAMES
+          and roi.num_objects == SEG_FRAMES * SERVE_K)
+    print(f"  PoseCNN ROI protocol: lost {roi.lost_detections}, extra "
+          f"{roi.extra_detections}, scored {roi.num_objects}, AUC {roi.auc:.2f} "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("segmentation: PoseCNN ROI counts")
+
+    # the .mat export of the frames plot_accuracy --synthetic re-reads
+    cfg = get_preset("ycb_refine")
+    ds = SyntheticPoseDataset(num_frames=2, num_objects=3,
+                              model_points=cfg.dataset.num_mesh_points,
+                              num_points=cfg.model.num_points, seed=7)
+    mats = tmp / "mat"
+    res = evaluate_full_pipeline(pipe, ds.frames, dict(ds.models), cfg.dataset.sym_list,
+                                 refine_iterations=2, save_mat_dir=str(mats))
+    table = tmp / "table.json"
+    real_cli("plot_accuracy", ["--mat_dir", str(mats), "--synthetic", "--json", str(table)],
+             {})
+    rows, want = json.loads(table.read_text()), accuracy_table(res.per_object_distances)
+    same = (len(rows) == len(want) and all(
+        r["object"] == w["object"] and r["count"] == w["count"]
+        and abs(r["auc"] - w["auc"]) <= 1e-3 and r["under_2cm"] == w["under_2cm"]
+        for r, w in zip(rows, want)))
+    print(f"  .mat export of {res.num_frames} frames re-read by tools.plot_accuracy "
+          f"--mat_dir --synthetic: the same table as in the process {same}")
+    if not same:
+        raise AssertionError(f"segmentation: plot_accuracy table {rows} != {want}")
+    del pipe, seg
+    torch.cuda.empty_cache()
+
+
+def seg_cli_walls(tmp):
+    """The segmentation CLIs as processes, with walls: train_segmentation
+    (14 classes), eval_ycb --full_pipeline --save_mat and serve with the
+    pspnet segmenter at seg_scale 2 at once; then segment_linemod on phase
+    21's LineMOD tree (written again by its writer) and eval_linemod with
+    those masks."""
+    from concurrent.futures import ThreadPoolExecutor
+    walls = {}
+    lm_root = tmp / "Linemod_preprocessed"
+    write_linemod_layout(lm_root, {})
+    seg_dir = tmp / "seg14"
+    with ThreadPoolExecutor(3) as pool:
+        train = pool.submit(real_cli, "train_segmentation", [
+            "--synthetic", "--nepoch", "1", "--num_classes", "14",
+            "--save_path", str(seg_dir), "--logs_path", str(seg_dir)], walls)
+        ycb = pool.submit(real_cli, "eval_ycb", [
+            "--synthetic", "--full_pipeline", "--save_mat", str(tmp / "cli_mat")], walls)
+        serve = pool.submit(real_cli, "serve", [
+            "--synthetic", "--seg_arch", "pspnet", "--seg_scale", "2",
+            "--num_frames", "4"], walls, "serve_seg")
+        logs = {"train": train.result(), "eval_ycb": ycb.result(), "serve": serve.result()}
+    masks = tmp / "segnet_results"
+    logs["segment"] = real_cli("segment_linemod", [
+        "--dataset_root", str(lm_root), "--model", str(seg_dir / "best.pt"),
+        "--out", str(masks)], walls)
+    logs["eval"] = real_cli("eval_linemod", [
+        "--dataset_root", str(lm_root), "--segnet_results", str(masks),
+        "--refine_iterations", "2"], walls, "eval_linemod_segmented")
+    served = [json.loads(x) for x in logs["serve"].splitlines() if x.startswith("{")]
+    ok = ("epoch 1: loss=" in logs["train"] and "ADD-S AUC (<0.1 m):" in logs["eval_ycb"]
+          and sorted(os.listdir(tmp / "cli_mat")) == ["000000.mat", "000001.mat"]
+          and len(served) == 4 and "wrote 4 predicted masks" in logs["segment"]
+          and "mean success rate:" in logs["eval"])
+    print(f"  CLIs as processes (walls, process start included; the first three at "
+          f"once): {json.dumps({k: round(v, 2) for k, v in walls.items()})} s; "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"segmentation: CLIs: {logs}")
+    return walls
+
+
+@phase("segmentation")
+def segmentation_phase(errs):
+    """Segmentation and the config-5 full pipeline on the card: kernel 2 at
+    the PSPNet segmenter's full-frame shapes, SegNet and the PSPNet
+    segmenter at 480 x 640 x 22 classes, SegTrainer steps, FrameEstimator
+    with each segmenter inside its graph, evaluate_full_pipeline in both
+    modes and three mask sources, the CLIs, and the timings."""
+    import tempfile
+    timings = {}
+    gen = torch.Generator().manual_seed(22)
+    table = seg_kernel_checks(errs, gen)
+    scenes = [serve_scene(s) for s in range(SEG_F[-1])]
+    seg_forward_checks(scenes, timings)
+    seg_train_checks(scenes, timings)
+    launches = seg_serve_checks(scenes, timings)
+    with tempfile.TemporaryDirectory() as tmp:
+        seg_pipeline_checks(scenes, timings, Path(tmp))
+        walls = seg_cli_walls(Path(tmp))
+    timings.update({f"{k}_wall_s": v for k, v in walls.items()})
+    return launches, table, timings
+
+
+def add_seg_launches(entries, launches, table):
+    """The segmented serving path's launches (its eager runs, by dtype)
+    and kernel 2's times at the segmenter's frame shapes into the kernels
+    line."""
+    for e in entries:
+        kname, _, dt_name = e["name"].rpartition("_")
+        if kname not in SOURCES or dt_name not in launches:
+            continue
+        e["launches_by_path"]["segmentation"] = launches[dt_name][kname]
+        e["launches"] += launches[dt_name][kname]
+        if kname == "upconv3x3_prelu":
+            for f, t in table[dt_name].items():
+                e[f"segmenter_frame_f{f}"] = {
+                    k: t[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
+
+
 def main():
     t0 = time.perf_counter()
     import_port()
@@ -3901,6 +4460,13 @@ def main():
     torch.cuda.empty_cache()
     real_launches, real = real_data_phase(errs)
     add_real_launches(entries, real_launches, errs)
+    torch.cuda.empty_cache()
+    seg_launches, seg_table, seg = segmentation_phase(errs)
+    add_seg_launches(entries, seg_launches, seg_table)
+    for e in entries:  # the decoder's error now covers the segmenter's shapes
+        kname, _, dt_name = e["name"].rpartition("_")
+        if kname == "upconv3x3_prelu":
+            e["max_abs_err"] = max(e["max_abs_err"], errs[(kname, dt_name)])
     print(f"summary ({smi}): build {build_s:.2f} s, total "
           f"{time.perf_counter() - t0:.2f} s, "
           f"frames/s {json.dumps({k: round(v, 1) for k, v in frames.items()})}, "
@@ -3915,6 +4481,7 @@ def main():
           f"serve CLI walls s {json.dumps({k: round(v, 2) for k, v in serve_walls.items()})}, "
           f"tf32 {json.dumps({k: round(v, 6) for k, v in tf32.items()})}, "
           f"real data {json.dumps({k: round(v, 4) for k, v in real.items()})}, "
+          f"segmentation {json.dumps({k: round(v, 4) for k, v in seg.items()})}, "
           f"estimate profiles {json.dumps({d: {k: round(v, 3) for k, v in p.items()} for d, p in est_profile.items()})}")
     print(smi)
     print(json.dumps({"kernels": entries}))

@@ -184,6 +184,12 @@ def sample_choose_batch(mask_flat: torch.Tensor, num_points: int,
     return torch.where(count > 0, choose, torch.zeros_like(choose))
 
 
+def normalize_frames(colors: torch.Tensor) -> torch.Tensor:
+    """uint8 (..., 3) frames -> a segmenter's f32 input in [-1, 1], as the
+    JAX segmentation trainer normalises them: (x / 255 - 0.5) / 0.5."""
+    return (colors.float() / 255.0 - 0.5) / 0.5
+
+
 def normalize_image(img_u8: torch.Tensor) -> torch.Tensor:
     """uint8 (H, W, 3) -> normalised float32, torchvision semantics."""
     x = img_u8.float() / 255.0

@@ -14,7 +14,12 @@ plr2_tpu/models/pspnet.py (the `use_pallas=True` configuration).
 - The embedding is gathered at `choose` BEFORE the final 1x1 conv and the
   log-softmax over channels (both per pixel, so the gather commutes), by
   `ops.gather.gather_rows`, whose backward sums each row's gradients in a
-  fixed order.
+  fixed order. Without `choose` (the segmenter, `models/segnet.py`
+  `build_segmenter("pspnet")`) the forward returns the full (B, H, W,
+  emb_dim) map: up_3 over the whole frame on the same kernel, the 1x1
+  conv at every pixel, and the log-softmax only if `log_softmax_final`.
+  JAX's segmenter takes its `phase_upsample` path, an XLA rewrite of the
+  same stage; here the decoder is the kernel in either mode.
 - Train mode applies the reference's three channel dropouts (rates 0.3,
   0.15, 0.15 after psp, up_1 and up_2; flax `nn.Dropout` with
   `broadcast_dims=(1, 2)`, i.e. one keep/drop draw per sample and channel,
@@ -184,13 +189,15 @@ def _draw_keep(batch: int, channels: int, rate: float,
 
 class PSPNet(nn.Module):
     def __init__(self, emb_dim: int = 32, sizes: Sequence[int] = (1, 2, 3, 6),
-                 psp_out: int = 1024, use_kernels: bool = True):
+                 psp_out: int = 1024, use_kernels: bool = True,
+                 log_softmax_final: bool = True):
         super().__init__()
         self.feats = DilatedResNet18()
         self.psp = PSPModule(512, psp_out, sizes)
         self.up_1 = PSPUpsample(psp_out, 256, use_kernels)
         self.up_2 = PSPUpsample(256, 64, use_kernels)
         self.up_3 = PSPUpsample(64, 64, use_kernels)
+        self.log_softmax_final = log_softmax_final
         self.final = nn.Sequential(nn.Conv2d(64, emb_dim, 1),
                                    nn.LogSoftmax(dim=1))
         self.dropout_rates = (0.3, 0.15, 0.15)  # drop_1, drop_2a, drop_2b
@@ -208,11 +215,15 @@ class PSPNet(nn.Module):
         return tuple(_draw_keep(batch, c, rate, generator) if rate > 0 else None
                      for c, rate in zip(channels, self.dropout_rates))
 
-    def forward(self, img, choose, generator=None, masks=None):
+    def forward(self, img, choose=None, generator=None, masks=None):
         """img (B, H, W, 3) NHWC; choose (B, N) flat pixel indices ->
-        the gathered log-softmax embedding (B, N, emb_dim). In train mode
-        the dropout masks are `masks` (`draw_dropout_masks`'s), or drawn
-        from `generator`."""
+        the gathered log-softmax embedding (B, N, emb_dim); without
+        `choose`, the full (B, H, W, emb_dim) map in the parameters' dtype
+        (log-softmax only if `log_softmax_final`). In train mode the
+        dropout masks are `masks` (`draw_dropout_masks`'s), or drawn from
+        `generator`."""
+        if choose is None:  # the segmenter: its input in its own dtype
+            img = img.to(self.final[0].weight.dtype)
         x = img.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
         p = stage(self, self.psp, stage(self, self.feats, x)).permute(0, 2, 3, 1)
         if self.training and masks is None:
@@ -223,11 +234,12 @@ class PSPNet(nn.Module):
                 p = channel_dropout(p, rate, None, masks[i])
             p = stage(self, up, p)
         b, h, w, c = p.shape
-        g = gather_rows(p.reshape(b, h * w, c), choose,
-                        self.up_1.use_kernels)
         conv = self.final[0]
-        e = F.linear(g, conv.weight.reshape(conv.out_channels, c), conv.bias)
-        return torch.log_softmax(e, dim=-1)
+        if choose is not None:
+            p = gather_rows(p.reshape(b, h * w, c), choose,
+                            self.up_1.use_kernels)
+        e = F.linear(p, conv.weight.reshape(conv.out_channels, c), conv.bias)
+        return torch.log_softmax(e, dim=-1) if self.log_softmax_final else e
 
 
 class ModifiedResnet(nn.Module):

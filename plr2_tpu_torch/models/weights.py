@@ -6,8 +6,12 @@ of the conversion in plr2_tpu/models/torch_export.py: they take the flax
 variables as nested dicts of numpy arrays ({"params": ..., "batch_stats":
 ...}) and return upstream-named state dicts (`cnn.model.feats...`,
 `feat.conv1...`, `conv1_r...`) that load into PoseNet / PoseRefineNet with
-`load_state_dict(strict=True)`. Layouts: HWIO -> OIHW (Conv2d), Dense
-(in, out) -> Conv1d (out, in, 1) / Linear (out, in).
+`load_state_dict(strict=True)`. `segmenter_state_dict` does the same for
+the two segmenters of `models/segnet.py`: SegNet (`enc{b}_{c}` /
+`dec{b}_{c}` blocks of a conv and a BatchNorm, `classifier`) and the
+PSPNet segmenter (the colour encoder's names without the `cnn.model.`
+prefix). Layouts: HWIO -> OIHW (Conv2d), Dense (in, out) -> Conv1d (out,
+in, 1) / Linear (out, in).
 
 `init_random_` fills every parameter and buffer of a module from an
 explicit `torch.Generator` (LeCun-normal weights, small random biases,
@@ -51,8 +55,7 @@ def _bn(prefix: str, params: Mapping, stats: Mapping, out: StateDict) -> None:
     out[f"{prefix}.num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
 
 
-def _feats(fe: Mapping, se: Mapping, out: StateDict) -> None:
-    pre = "cnn.model.feats"
+def _feats(fe: Mapping, se: Mapping, out: StateDict, pre: str) -> None:
     for i in (1, 2, 3):
         out[f"{pre}.conv{i}.weight"] = _conv2d(fe[f"conv{i}"]["kernel"])
         _bn(f"{pre}.bn{i}", fe[f"bn{i}"], se[f"bn{i}"], out)
@@ -77,24 +80,30 @@ def _trunk(feat: Mapping, out: StateDict) -> None:
         out[f"feat.{name}.bias"] = _t(feat[name]["bias"])
 
 
+def _pspnet(params: Mapping, stats: Mapping, out: StateDict,
+            pre: str) -> None:
+    """The colour encoder's variables under the module prefix `pre`."""
+    _feats(params["feats"], stats["feats"], out, f"{pre}feats")
+    psp = params["psp"]
+    for i in range(4):
+        out[f"{pre}psp.stages.{i}.1.weight"] = _conv2d(
+            psp[f"stage{i}_conv"]["kernel"])
+    out[f"{pre}psp.bottleneck.weight"] = _conv2d(psp["bottleneck"]["kernel"])
+    out[f"{pre}psp.bottleneck.bias"] = _t(psp["bottleneck"]["bias"])
+    for name in ("up_1", "up_2", "up_3"):
+        up = params[name]
+        out[f"{pre}{name}.conv.1.weight"] = _conv2d(up["conv"]["kernel"])
+        out[f"{pre}{name}.conv.1.bias"] = _t(up["conv"]["bias"])
+        out[f"{pre}{name}.conv.2.weight"] = _t(up["prelu_alpha"]).reshape(1)
+    out[f"{pre}final.0.weight"] = _conv2d(params["final"]["kernel"])
+    out[f"{pre}final.0.bias"] = _t(params["final"]["bias"])
+
+
 def posenet_state_dict(variables: Mapping) -> StateDict:
     """JAX PoseNet variables ({params, batch_stats}) -> PoseNet state dict."""
     params, stats = variables["params"], variables["batch_stats"]
     out: StateDict = {}
-    _feats(params["cnn"]["feats"], stats["cnn"]["feats"], out)
-    psp = params["cnn"]["psp"]
-    for i in range(4):
-        out[f"cnn.model.psp.stages.{i}.1.weight"] = _conv2d(
-            psp[f"stage{i}_conv"]["kernel"])
-    out["cnn.model.psp.bottleneck.weight"] = _conv2d(psp["bottleneck"]["kernel"])
-    out["cnn.model.psp.bottleneck.bias"] = _t(psp["bottleneck"]["bias"])
-    for name in ("up_1", "up_2", "up_3"):
-        up = params["cnn"][name]
-        out[f"cnn.model.{name}.conv.1.weight"] = _conv2d(up["conv"]["kernel"])
-        out[f"cnn.model.{name}.conv.1.bias"] = _t(up["conv"]["bias"])
-        out[f"cnn.model.{name}.conv.2.weight"] = _t(up["prelu_alpha"]).reshape(1)
-    out["cnn.model.final.0.weight"] = _conv2d(params["cnn"]["final"]["kernel"])
-    out["cnn.model.final.0.bias"] = _t(params["cnn"]["final"]["bias"])
+    _pspnet(params["cnn"], stats["cnn"], out, "cnn.model.")
     _trunk(params["feat"], out)
     for tag in ("r", "t", "c"):
         for i in range(1, 5):
@@ -114,6 +123,27 @@ def refinenet_state_dict(variables: Mapping) -> StateDict:
             lp = params[f"conv{i}_{tag}"]
             out[f"conv{i}_{tag}.weight"] = _linear(lp["kernel"])
             out[f"conv{i}_{tag}.bias"] = _t(lp["bias"])
+    return out
+
+
+def segmenter_state_dict(arch: str, variables: Mapping) -> StateDict:
+    """JAX segmenter variables ({params, batch_stats}) of
+    `build_segmenter(arch, ...)` -> the port segmenter's state dict."""
+    params, stats = variables["params"], variables["batch_stats"]
+    out: StateDict = {}
+    if arch == "pspnet":
+        _pspnet(params, stats, out, "")
+        return out
+    if arch != "segnet":
+        raise ValueError(f"unknown segmenter arch {arch!r}")
+    for name, block in params.items():
+        if name == "classifier":
+            out["classifier.weight"] = _conv2d(block["kernel"])
+            out["classifier.bias"] = _t(block["bias"])
+            continue
+        out[f"{name}.conv.weight"] = _conv2d(block["Conv_0"]["kernel"])
+        out[f"{name}.conv.bias"] = _t(block["Conv_0"]["bias"])
+        _bn(f"{name}.bn", block["BatchNorm_0"], stats[name]["BatchNorm_0"], out)
     return out
 
 

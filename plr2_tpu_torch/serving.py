@@ -3,16 +3,18 @@ plr2_tpu/serving.py (`FramePoses`, `FrameEstimator`).
 
 The JAX package runs the whole per-frame chain as one XLA program:
 
-    per-object mask -> border-list bbox (device twin) -> canvas crop ->
-    fused choose / backproject / normalise preprocessing -> one PoseNet
-    batch over every object -> best hypothesis -> refinement.
+    [segmenter label map (optional)] -> per-object mask -> border-list
+    bbox (device twin) -> canvas crop -> fused choose / backproject /
+    normalise preprocessing -> one PoseNet batch over every object -> best
+    hypothesis -> refinement.
 
 Here the same chain is one sequence of CUDA work with no host sync in it
 (no `.item()`, no `nonzero`, no host copy: `data/bbox.py`'s device twins
 and `data/preprocess.py`'s batched functions), and on a CUDA pipeline it
 is captured as ONE CUDA graph per set of static knobs: canvas, K (or F
 frames x K slots), num_points, refine iterations, the pipeline's dtype,
-poses only or with the samples, and which optional inputs were given.
+the segmenter's scale and dtype, poses only or with the samples, and
+which optional inputs were given.
 The first call of a knob set runs the program eagerly (the warm-up: the
 PSP matrices cached, the kernels' shared-memory limits set, cuDNN's
 algorithms picked, the device constants made), copies its inputs into
@@ -35,19 +37,31 @@ them on the device from (frame seed, object id) by an integer mix of its
 own (`frame_key_words`), so they depend on the object id and not on the
 slot, as JAX's do.
 
-Not ported: on-device segmentation (`seg_model`, ROADMAP A6) and the
-frame batch sharded over a mesh (`mesh`, ROADMAP A7): both raise.
+Segmentation on the device: with `seg_model` (a segmenter of
+`models/segnet.py` `build_segmenter`, either architecture, in its own
+dtype) the frame's `label` is ignored and the program segments the frames
+itself (`_segment`: normalise, zero-pad to a multiple of 32 * seg_scale,
+an s x s average pool when seg_scale = s > 1, the segmenter, argmax,
+nearest upsample by s, cut to the frame), inside the same graph. The
+segmenter is put in eval mode. `seg_variables` (a state dict) are copied
+into the segmenter's parameters in place, so a graph already captured
+replays with them; casting the segmenter (new parameter storage) drops
+the graphs, as `pipe.cast` does.
+
+Not ported: the frame batch sharded over a mesh (`mesh`, ROADMAP A7): it
+raises.
 """
 
 from __future__ import annotations
 
-from typing import Any, NamedTuple, Optional, Sequence
+from typing import Any, Mapping, NamedTuple, Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 
 from plr2_tpu_torch.data.bbox import device_bbox_from_mask
 from plr2_tpu_torch.data.preprocess import (Sample, _M32, _mul32,
-                                            preprocess_crops)
+                                            normalize_frames, preprocess_crops)
 from plr2_tpu_torch.pipeline import DenseFusionPipeline, full_f32
 from plr2_tpu_torch.utils.cuda_graphs import capture as _capture
 from plr2_tpu_torch.utils.cuda_graphs import clone as _clone
@@ -86,6 +100,11 @@ def frame_key_words(seeds: torch.Tensor, obj_ids: torch.Tensor) -> torch.Tensor:
 class FrameEstimator:
     """Runs the frame program of `pipe` (its dtype decides f32 / bf16).
 
+    seg_model: optional segmenter (`build_segmenter`); when given, the
+        frames are segmented on the device and `label` is ignored.
+    seg_scale: s >= 1; s > 1 runs the segmenter on an s-times smaller
+        frame (s x s average pool) and nearest-upsamples its labels: about
+        s^2 less segmenter work, at s-pixel mask quantisation.
     graphs: on a CUDA pipeline, capture one CUDA graph per knob set and
         replay it (True), or run the program eagerly (False).
     """
@@ -97,10 +116,8 @@ class FrameEstimator:
                  graphs: bool = True):
         if canvas > img_h or canvas > img_w:
             raise ValueError("canvas must fit inside the frame")
-        if seg_model is not None or seg_scale != 1:
-            raise NotImplementedError(
-                "not ported: on-device segmentation (seg_model, seg_scale): "
-                "ROADMAP A6 (segmentation)")
+        if seg_scale < 1:
+            raise ValueError("seg_scale must be >= 1")
         if mesh is not None:
             raise NotImplementedError(
                 "not ported: run_frames sharded over a mesh: ROADMAP A7 "
@@ -111,6 +128,8 @@ class FrameEstimator:
         self.img_w = img_w
         self.refine_iterations = refine_iterations
         self.min_mask_pixels = min_mask_pixels
+        self.seg_model = None if seg_model is None else seg_model.eval()
+        self.seg_scale = seg_scale
         self.graphs = graphs and pipe.device.type == "cuda"
         self._graphs = {}
         self._weights = None
@@ -170,12 +189,40 @@ class FrameEstimator:
         detected = (flat > 0) & (npix >= self.min_mask_pixels)
         return sample, detected & fits, detected & ~fits
 
+    def _seg_dtype(self) -> Optional[torch.dtype]:
+        if self.seg_model is None:
+            return None
+        return next(self.seg_model.parameters()).dtype
+
+    def _segment(self, colors: torch.Tensor) -> torch.Tensor:
+        """(F, H, W, 3) uint8 frames -> (F, H, W) int32 labels, on the
+        device and without a sync."""
+        s = self.seg_scale
+        unit = 32 * s
+        f, h, w = colors.shape[:3]
+        norm = F.pad(normalize_frames(colors),
+                     (0, 0, 0, -(-w // unit) * unit - w,
+                      0, -(-h // unit) * unit - h))
+        if s > 1:
+            _, hp, wp, c = norm.shape
+            norm = norm.reshape(f, hp // s, s, wp // s, s, c).mean((2, 4))
+        with full_f32(self._seg_dtype() == torch.float32):
+            labels = self.seg_model(norm).argmax(-1).to(torch.int32)
+        if s > 1:
+            _, hs, ws = labels.shape
+            labels = labels[:, :, None, :, None].expand(
+                f, hs, s, ws, s).reshape(f, hs * s, ws * s)
+        return labels[:, :h, :w]
+
     def _program(self, with_samples, colors, depths, labels, obj_ids,
                  model_points, intr, seeds, words, target_r, target_t):
         """The frame program over (F, ...) inputs: FramePoses with (F, K)
         fields, and the (F, K, ...) samples when `with_samples`."""
         f, k = obj_ids.shape
         dev = obj_ids.device
+        if self.seg_model is not None:
+            with torch.no_grad():
+                labels = self._segment(colors)
         if words is None:
             words = frame_key_words(seeds, obj_ids)
         if target_r is None:
@@ -202,18 +249,20 @@ class FrameEstimator:
 
     def _knobs(self, with_samples: bool, args: Sequence) -> tuple:
         """The static knobs a call's graph is keyed by: canvas, num_points,
-        refine iterations, dtype, poses only or with samples, and each
-        input's shape and dtype (None where not given): K or (F, K) is the
-        shape of obj_ids."""
+        refine iterations, dtype, poses only or with samples, each input's
+        shape and dtype (None where not given: K or (F, K) is the shape of
+        obj_ids), the segmenter's scale and dtype (None without one)."""
         return (self.canvas, self.pipe.num_points, self.refine_iterations,
                 self.pipe.dtype, with_samples,
                 tuple(None if a is None else (tuple(a.shape), a.dtype)
-                      for a in args))
+                      for a in args), self.seg_scale, self._seg_dtype())
 
     def _dispatch(self, with_samples, args):
         if not self.graphs:
             return self._program(with_samples, *args)
         weights = weights_key(self.pipe)
+        if self.seg_model is not None:
+            weights += (next(self.seg_model.parameters()).data_ptr(),)
         if weights != self._weights:  # the pipeline was cast: new graphs
             self._graphs.clear()
             self._weights = weights
@@ -242,19 +291,28 @@ class FrameEstimator:
                 return torch.full((), x, dtype=dtype, device=dev)
             return torch.as_tensor(x, dtype=dtype, device=dev)
         seeds = None if key_words is not None else t(keys, torch.int64)
+        if self.seg_model is not None:
+            labels = None  # the program segments the frames itself
         return (t(colors, torch.uint8), t(depths, torch.float32),
                 t(labels, torch.int32), t(obj_ids, torch.int64),
                 t(model_points, torch.float32), t(intr, torch.float32),
                 seeds, t(key_words, torch.int64), t(target_r, torch.float32),
                 t(target_t, torch.float32))
 
+    def _load_seg(self, seg_variables: Optional[Mapping]) -> None:
+        """Copy a segmenter state dict into the segmenter in place (a
+        captured graph reads the new values)."""
+        if seg_variables is None:
+            return
+        if self.seg_model is None:
+            raise ValueError("seg_variables given to a FrameEstimator "
+                             "without seg_model")
+        self.seg_model.load_state_dict(seg_variables, strict=True)
+
     def _single(self, with_samples, color, depth, label, obj_ids,
                 model_points, intr_vec, key, seg_variables, target_r,
                 target_t, key_words):
-        if seg_variables is not None:
-            raise NotImplementedError(
-                "not ported: seg_variables (on-device segmentation): "
-                "ROADMAP A6 (segmentation)")
+        self._load_seg(seg_variables)
         args = self._inputs(color, depth, label, obj_ids, model_points,
                             intr_vec, key, key_words, target_r, target_t)
         # one frame is the F = 1 case of the frame-batch program
@@ -274,7 +332,7 @@ class FrameEstimator:
         """Poses of up to K = len(obj_ids) objects of one frame.
 
         color (H, W, 3) uint8; depth (H, W) f32 raw units; label (H, W)
-        int; obj_ids (K,) 1-based label ids, <= 0 for inactive slots;
+        int (ignored, and may be None, with a seg_model); obj_ids (K,) 1-based label ids, <= 0 for inactive slots;
         model_points (K, M, 3); intr_vec (5,) [cx cy fx fy cam_scale];
         key: the frame seed (an int or a 0-d int tensor) the slots' key
         words derive from, unless `key_words` (K, 2) gives them.
@@ -302,11 +360,9 @@ class FrameEstimator:
                    key_words: Optional[torch.Tensor] = None) -> FramePoses:
         """F frames at once (a leading F axis on every argument; obj_ids
         (F, K), keys (F,) frame seeds, key_words (F, K, 2)): FramePoses
-        with (F, K, ...) fields. The F*K crops share one PoseNet batch."""
-        if seg_variables is not None:
-            raise NotImplementedError(
-                "not ported: seg_variables (on-device segmentation): "
-                "ROADMAP A6 (segmentation)")
+        with (F, K, ...) fields. The F*K crops share one PoseNet batch and
+        the F frames one segmenter batch."""
+        self._load_seg(seg_variables)
         return self._dispatch(False, self._inputs(
             colors, depths, labels, obj_ids, model_points, intr_vecs, keys,
             key_words, target_r, target_t))

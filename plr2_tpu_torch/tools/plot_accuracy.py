@@ -6,14 +6,15 @@ evaluate_poses_keyframe.m):
   python -m plr2_tpu_torch.tools.plot_accuracy --distances report.json --out curves.png
   # per-frame pose .mat dumps re-evaluated against the synthetic frames:
   python -m plr2_tpu_torch.tools.plot_accuracy --mat_dir DIR --synthetic --json table.json
+  # ... or against a YCB-Video test split's keyframes:
+  python -m plr2_tpu_torch.tools.plot_accuracy --mat_dir DIR --dataset_root YCB_ROOT
 
 Prints the per-object AUC / <2cm / mean-distance table (with 0.1*diameter
 success when the report holds diameters), and writes the curve figure
 (--out, which needs matplotlib) and the table as JSON (--json). It runs on
 the CPU: no model, only distances. YCB ground truth (--dataset_root)
-needs the full-pipeline keyframes of `eval/full_pipeline.py`
-(`ycb_frames_and_models`), which wait for ROADMAP A6: it raises
-NotImplementedError.
+comes from `eval/full_pipeline.py` `ycb_frames_and_models`, the frames
+the live full-pipeline eval scores.
 """
 
 from __future__ import annotations
@@ -31,8 +32,7 @@ def parse_args(argv=None):
                    help="directory of %%06d.mat pose dumps to re-evaluate "
                         "against ground truth")
     p.add_argument("--dataset_root", type=str, default="",
-                   help="YCB root for --mat_dir ground truth (not ported: "
-                        "raises)")
+                   help="YCB-Video root for --mat_dir ground truth")
     p.add_argument("--synthetic", action="store_true",
                    help="the synthetic fixture frames as --mat_dir ground truth")
     p.add_argument("--max_frames", type=int, default=None)
@@ -60,20 +60,24 @@ def main(argv=None):
             diameters = {int(k): float(v)
                          for k, v in meta["diameters"].items()}
     else:
-        if args.dataset_root:
-            raise NotImplementedError(
-                "not ported: YCB ground truth for --mat_dir (--dataset_root) "
-                "needs ycb_frames_and_models: ROADMAP A6 (full_pipeline.py)")
-        if not args.synthetic:
-            p.error("--mat_dir needs --synthetic (or --dataset_root)")
+        if args.synthetic == bool(args.dataset_root):
+            raise SystemExit("--mat_dir needs --dataset_root DIR (a YCB-Video "
+                             "tree) or --synthetic: pick one")
         from plr2_tpu_torch.config import get_preset
-        from plr2_tpu_torch.data import SyntheticPoseDataset
         cfg = get_preset("ycb_refine")
-        ds = SyntheticPoseDataset(num_frames=2, num_objects=3,
-                                  model_points=cfg.dataset.num_mesh_points,
-                                  num_points=cfg.model.num_points, seed=7)
-        per_obj = distances_from_mat_dir(args.mat_dir, ds.frames,
-                                         dict(ds.models),
+        if args.synthetic:
+            from plr2_tpu_torch.data import SyntheticPoseDataset
+            ds = SyntheticPoseDataset(num_frames=2, num_objects=3,
+                                      model_points=cfg.dataset.num_mesh_points,
+                                      num_points=cfg.model.num_points, seed=7)
+            frames, models = ds.frames, dict(ds.models)
+        else:
+            from plr2_tpu_torch.data import YCBDataset
+            from plr2_tpu_torch.eval.full_pipeline import ycb_frames_and_models
+            ds = YCBDataset(args.dataset_root, "test", cfg.model.num_points,
+                            cfg.dataset.num_mesh_points, add_noise=False)
+            frames, models = ycb_frames_and_models(ds, args.max_frames)
+        per_obj = distances_from_mat_dir(args.mat_dir, frames, models,
                                          sym_list=cfg.dataset.sym_list)
 
     rows = accuracy_table(per_obj, diameters=diameters, max_dist=args.max_dist)

@@ -5,6 +5,7 @@ of tools/serve.py:
   python -m plr2_tpu_torch.tools.serve --synthetic --batch 8               # run_frames
   python -m plr2_tpu_torch.tools.serve --synthetic --num_frames 2 --cpu    # CPU
   python -m plr2_tpu_torch.tools.serve --dataset_root /data/YCB_Video_Dataset
+  python -m plr2_tpu_torch.tools.serve --synthetic --seg_arch pspnet --seg_scale 2
 
 Streams RGB-D frames through the frame program (one CUDA graph per
 static-knob set on the card; `--eager` runs without graphs) and prints one
@@ -16,9 +17,12 @@ its GT label maps and the first --max_objects labelled objects, read with
 no PIL). Frame i's key words derive from seed i in both modes, so
 `--batch` serves the same poses as single frames. `--model` is a
 directory of the port's checkpoints (`best.pt`); without it the weights
-are the seeded initialisation. On-device segmentation (--seg_arch,
---seg_model) waits for ROADMAP A6 and raises NotImplementedError. Without
---cpu it runs on the CUDA card or raises.
+are the seeded initialisation. `--seg_arch {segnet,pspnet}` segments each
+frame on the device inside the frame program (the frame's label map is
+then not read), with `--seg_model`'s weights (a state dict from
+`tools.train_segmentation`, 22 classes) or seeded ones, on an s-times
+smaller frame with `--seg_scale s`; with --bf16 the segmenter runs in bf16
+too. Without --cpu it runs on the CUDA card or raises.
 """
 
 from __future__ import annotations
@@ -54,9 +58,13 @@ def parse_args(argv=None):
                         "serve the frame again instead of dropping the "
                         "object")
     p.add_argument("--seg_arch", type=str, default="",
-                   help="segment on the device (not ported: raises)")
+                   choices=("", "segnet", "pspnet"),
+                   help="segment the frames on the device with this segmenter")
     p.add_argument("--seg_model", type=str, default="",
-                   help="segmenter weights (not ported: raises)")
+                   help="segmenter weights (train_segmentation's best.pt); "
+                        "needs --seg_arch")
+    p.add_argument("--seg_scale", type=int, default=1,
+                   help="run the segmenter on an s-times downsampled frame")
     p.add_argument("--bf16", action="store_true")
     p.add_argument("--eager", action="store_true",
                    help="run the frame program eagerly (no CUDA graphs)")
@@ -69,10 +77,8 @@ def refuse_unsupported(args) -> None:
     if args.synthetic and args.dataset_root:
         raise SystemExit("give --dataset_root DIR (a YCB-Video tree) or "
                          "--synthetic: pick one")
-    if args.seg_arch or args.seg_model:
-        raise NotImplementedError(
-            "not ported: on-device segmentation (--seg_arch, --seg_model): "
-            "ROADMAP A6 (segmentation)")
+    if args.seg_model and not args.seg_arch:
+        raise SystemExit("--seg_model needs --seg_arch (segnet or pspnet)")
 
 
 def build_pipeline(args):
@@ -104,6 +110,22 @@ def build_pipeline(args):
     if args.bf16:
         pipe.cast(torch.bfloat16)
     return pipe
+
+
+def load_segmenter(args, pipe):
+    """The --seg_arch segmenter (22 classes: background and the 21 YCB
+    objects) on the pipeline's device: --seg_model's weights or seeded
+    ones, in bf16 with --bf16; None without --seg_arch."""
+    if not args.seg_arch:
+        return None
+    import torch
+
+    from plr2_tpu_torch.models.segnet import build_segmenter as build
+    from plr2_tpu_torch.train.seg_trainer import load_weights
+    seg = build(args.seg_arch, NUM_OBJECTS + 1, device=pipe.device, seed=1)
+    if args.seg_model:
+        load_weights(args.seg_model, seg)
+    return seg.to(torch.bfloat16) if args.bf16 else seg
 
 
 def synthetic_frames(num_frames: int, k: int):
@@ -166,9 +188,14 @@ def main(argv=None):
     from plr2_tpu_torch.utils.interrupt import GracefulInterrupt
 
     pipe = build_pipeline(args)
+    seg = load_segmenter(args, pipe)
     k = args.max_objects
-    fe = FrameEstimator(pipe, canvas=args.canvas, refine_iterations=args.iters,
-                        graphs=not args.eager)
+
+    def estimator(canvas):
+        return FrameEstimator(pipe, canvas=canvas, refine_iterations=args.iters,
+                              seg_model=seg, seg_scale=args.seg_scale,
+                              graphs=not args.eager)
+    fe = estimator(args.canvas)
     totals = {"dropped": 0, "oversized": 0}
 
     def emit(i, ms, oids, poses, slot0=0):
@@ -204,9 +231,7 @@ def main(argv=None):
             grown = next_canvas(fe_.canvas)
             print(f"oversized window at canvas {fe_.canvas}: new estimator "
                   f"at {grown}", file=sys.stderr, flush=True)
-            fe_ = FrameEstimator(pipe, canvas=grown,
-                                 refine_iterations=args.iters,
-                                 graphs=not args.eager)
+            fe_ = estimator(grown)
             poses = fe_.run(color, depth, label, oids, mps, intr, i)
             over = poses.oversized.cpu().numpy()
         emit(i, (time.perf_counter() - t0) * 1e3, oids, poses)

@@ -94,8 +94,8 @@ def test_eval_precision_modes_without_checkpoint(tmp_path, capsys):
     (lambda: eval_linemod.main(["--synthetic", "--segnet_results", "/s", "--cpu"]),
      SystemExit, "not of --synthetic"),
     (lambda: infer.main(["--color", "c.png", "--cpu"]), SystemExit, "--depth"),
-    (lambda: plot_accuracy.main(["--mat_dir", "/m", "--dataset_root", "/d"]),
-     NotImplementedError, "not ported: .*ROADMAP A6"),
+    (lambda: plot_accuracy.main(["--mat_dir", "/m", "--dataset_root", "/d",
+                                 "--synthetic"]), SystemExit, "pick one"),
 ], ids=["eval_real", "eval_dataset_root", "eval_segnet", "infer_real",
         "plot_ycb"])
 def test_cli_refuses_unported_flags(call, exc, match):

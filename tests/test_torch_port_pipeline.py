@@ -161,8 +161,8 @@ def test_initial_pose_first_index_wins_ties():
 
 
 def test_import_hygiene_no_jax_no_reference_package():
-    """The port (every module of it, the eval modules, CLIs and the
-    real-data loaders included) and chip_smoke.py import neither jax nor
+    """The port (every module of it, the eval modules, CLIs, the
+    real-data loaders and the segmentation slice included) and chip_smoke.py import neither jax nor
     flax nor any plr2_tpu module, nor PIL or PyYAML (the card's host has
     neither),
     read no .msgpack checkpoint, and leave matplotlib unimported (the card's
@@ -182,7 +182,10 @@ def test_import_hygiene_no_jax_no_reference_package():
         "          'tools.infer', 'tools.eval_precision_modes',\n"
         "          'tools.plot_accuracy', 'native', 'data.codecs',\n"
         "          'data.frame_cache', 'data.linemod', 'data.ycb',\n"
-        "          'data.posecnn', 'data.prefetch'):\n"
+        "          'data.posecnn', 'data.prefetch', 'models.segnet',\n"
+        "          'train.seg_trainer', 'eval.segment', 'eval.full_pipeline',\n"
+        "          'tools.train_segmentation', 'tools.segment_linemod',\n"
+        "          'tools.eval_ycb', 'tools.journey_config5'):\n"
         "    assert 'plr2_tpu_torch.' + m in sys.modules, m\n"
         "assert 'matplotlib' not in sys.modules\n"
         "print('ok')\n")

@@ -438,10 +438,8 @@ def test_graph_keying_and_replay_with_an_eager_stand_in(monkeypatch):
 
 def test_refusals():
     pipe = _small_pipe()
-    with pytest.raises(NotImplementedError, match="A6"):
-        FrameEstimator(pipe, seg_model=object())
-    with pytest.raises(NotImplementedError, match="A6"):
-        FrameEstimator(pipe, seg_scale=2)
+    with pytest.raises(ValueError, match="seg_scale"):
+        FrameEstimator(pipe, seg_scale=0)
     with pytest.raises(NotImplementedError, match="A7"):
         FrameEstimator(pipe, mesh=object())
     with pytest.raises(ValueError, match="canvas"):
@@ -450,12 +448,10 @@ def test_refusals():
     frame = (np.zeros((48, 48, 3), np.uint8), np.zeros((48, 48), np.float32),
              np.zeros((48, 48), np.int32), np.array([1]),
              np.zeros((1, 8, 3), np.float32), np.ones(5, np.float32))
-    with pytest.raises(NotImplementedError, match="A6"):
+    with pytest.raises(ValueError, match="without seg_model"):
         fe.run(*frame, 0, seg_variables={})
-    for argv in (["--synthetic", "--seg_arch", "pspnet"],
-                 ["--synthetic", "--seg_model", "seg.msgpack"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-            serve.main(argv)
+    with pytest.raises(SystemExit, match="--seg_arch"):
+        serve.main(["--synthetic", "--seg_model", "seg.pt"])
     with pytest.raises(SystemExit, match="pick one"):
         serve.main(["--synthetic", "--dataset_root", "/data/ycb"])
 
