@@ -215,6 +215,37 @@ non-zero, and there is no CPU fallback:
    --seg_scale 2 at once, then segment_linemod on phase 21's LineMOD tree
    and eval_linemod --segnet_results on its masks.
 
+23. parallel (last): the parallel layer (plr2_tpu_torch/parallel/) at the
+   train cell's width (batch 32, 160 px, 1000 points, 21 objects, 2 refine
+   iterations). (a) One rank over NCCL: the graphed data-parallel
+   BatchTrainer step (its BatchNorm, gradient and metric collectives
+   captured with the program) in f32 and bf16 against the single-device
+   step, with its ms beside the graphed and eager single-device steps.
+   f32: loss 1e-5, gradients outside the colour encoder 1e-3 in relative
+   L2; the colour encoder's (ill-conditioned in f32) no less accurate
+   against the float64 single-device step than the f32 single-device
+   step's (twice its error plus 1e-3), and the float64 mesh step equal to
+   the float64 single-device step (the plain versions; every gradient
+   1e-3). bf16: the loss at the mixed phase's 2e-2, every gradient no less
+   accurate against the f32 step than the bf16 single-device step's (twice
+   plus 2e-2). run_frames over the mesh (F = 8, K = 5) against the
+   unsharded call after 0, 2 and 4 refine iterations (the estimate gates)
+   and the frames/s of both graphed; the tensor-parallel estimate and
+   stage-1 step (no mlp_head launch: the sliced heads are per-layer
+   F.linear), the point-parallel estimate and step (gradients as the
+   f32 DP step's) and sp_match bit-equal to nn_match on one sample's
+   500,000 ADD-S queries, the pipelined estimate (1 stage of 2 iterations,
+   2 micro-batches); each counts its collectives (at least 1). (b) Two
+   gloo ranks spawned on the one card, eager: the data-parallel step at
+   batch 32 (16 a rank) against the single-device step on the global
+   batch (as in (a), the float64 twins on rank 0), run_frames split 4 / 4
+   against the unsharded call on each rank's 4 frames (the estimate gates,
+   both dtypes, 0, 2 and 4 iterations) and on all 8 (f32 gated; bf16 up
+   to 2 iterations within the 4-frame call's own gap to the 8-frame call,
+   plus 5e-2), sp_match over 2 ranks bit-equal to nn_match, the pipelined
+   estimate with pipe = 2; every rank's launches of kernels 1, 2, 4 and
+   the gather.
+
 The second-to-last line is a JSON object with one entry per kernel and
 dtype; the last line is {"ok": true, "device": {...}}.
 """
@@ -4413,6 +4444,594 @@ def add_seg_launches(entries, launches, table):
                     k: t[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
 
 
+# ---------------- the parallel layer (phase 23) ----------------
+
+# the train cell's width (batch TRAIN_BATCH, CROP px, NUM_POINTS points,
+# NUM_OBJ objects, ITERS refine iterations) and serve's F = SERVE_F frames;
+# estimates and run_frames against their single-device twins at POSE_TOL
+# (PERF.md section 2)
+PAR_SEED = 7
+# a mesh step against its single-device twin: loss and dis relative at
+# STEP_TOL's 1e-5, each gradient in relative L2, every tensor outside the
+# colour encoder at STEP_TOL's 1e-3. The colour encoder's (`cnn.*`) f32
+# gradients are ill-conditioned (tests/test_torch_port_train.py
+# `_grad_error`): two f32 evaluations of them that round in another order
+# (the mesh's BatchNorm takes E[x] and E[x^2], flax's order, where one
+# device calls F.batch_norm; two ranks sum their halves) differ there by
+# about as much as either differs from float64. So the mesh step is held
+# to the single-device step where that costs nothing, and to its accuracy
+# where it does:
+# - in float64, through the plain versions: every gradient at 1e-3, the
+#   loss and dis at 1e-5 (STEP_TOL);
+# - in f32, through the kernels: the colour encoder's largest gradient
+#   error against the float64 single-device step at most ACCURACY_FACTOR
+#   times the f32 single-device step's, plus STEP_TOL's 1e-3. Two
+#   roundings of one function land at one scale; a fault of the mesh
+#   (statistics of one block, a gradient not averaged) moves the
+#   gradients by far more, the other tensors' included;
+# - in bf16 (mixed precision, one rank): the loss at MIXED_TOL's 2e-2, and
+#   every gradient's largest error against the f32 single-device step at
+#   most ACCURACY_FACTOR times the bf16 single-device step's, plus 2e-2.
+ACCURACY_FACTOR = 2.0
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def collectives():
+    from plr2_tpu_torch.parallel import mesh
+    return dict(mesh.launches)
+
+
+def reset_collectives():
+    from plr2_tpu_torch.parallel import mesh
+    for k in mesh.launches:
+        mesh.launches[k] = 0
+
+
+def grads_of(net):
+    return {n: p.grad.detach().double().clone() for n, p in net.named_parameters()
+            if p.grad is not None}
+
+
+def rel_l2(grads, ref_grads):
+    if set(grads) != set(ref_grads):
+        raise AssertionError(f"gradients of {sorted(set(grads) ^ set(ref_grads))[:4]}")
+    return {n: float((grads[n] - r).norm() / r.norm().clamp(min=1e-300))
+            for n, r in ref_grads.items()}
+
+
+def largest(gaps, cnn):
+    """The largest of `gaps` in the colour encoder (`cnn`) or outside it."""
+    return max((v for n, v in gaps.items() if n.startswith("cnn.") == cnn),
+               default=0.0)
+
+
+def step_gap(what, met, ref_met, grads, ref_grads, loss_tol, grad_tol=None,
+             cnn_tol=None):
+    """A mesh step against its single-device twin: loss and dis relative,
+    each gradient in relative L2 (the colour encoder's largest and the
+    rest's); the loss gated at `loss_tol`, dis with the gradients outside
+    the colour encoder at `grad_tol`, the colour encoder's at `cnn_tol`
+    (None: printed only)."""
+    loss = abs(float(met["loss"]) - float(ref_met["loss"])) / abs(float(ref_met["loss"]))
+    dis = abs(float(met["dis"]) - float(ref_met["dis"])) / abs(float(ref_met["dis"]))
+    gaps = rel_l2(grads, ref_grads)
+    cnn, rest = largest(gaps, True), largest(gaps, False)
+    ok = (loss <= loss_tol
+          and (grad_tol is None or (dis <= loss_tol and rest <= grad_tol))
+          and (cnn_tol is None or cnn <= cnn_tol))
+    print(f"  {what} vs the single-device step: loss rel {loss:.2e} (tol "
+          f"{loss_tol:g}), dis rel {dis:.2e}, gradients largest rel L2: colour "
+          f"encoder {cnn:.2e} (tol {cnn_tol if cnn_tol is not None else '-'}), "
+          f"the rest {rest:.2e} (tol {grad_tol if grad_tol is not None else '-'}); "
+          f"worst {max(gaps, key=gaps.get)} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{what}: the mesh step disagrees")
+    return {"loss": loss, "dis": dis, "grad_l2": rest, "cnn_grad_l2": cnn}
+
+
+def accuracy_gap(what, grads, single_grads, ref_grads, ref_name, slack,
+                 parts=(True,)):
+    """The mesh step's gradients against the higher-precision `ref_grads`,
+    beside the single-device step's: in each of `parts` (True: the colour
+    encoder, False: the rest) the mesh's largest rel. L2 error at most
+    ACCURACY_FACTOR times the single device's, plus `slack`."""
+    em, es = rel_l2(grads, ref_grads), rel_l2(single_grads, ref_grads)
+    out, ok = {}, True
+    for cnn in parts:
+        m, one = largest(em, cnn), largest(es, cnn)
+        good = m <= ACCURACY_FACTOR * one + slack
+        ok = ok and good
+        name = "colour encoder" if cnn else "the rest"
+        print(f"  {what}, {name}'s gradients against {ref_name}: largest rel "
+              f"L2 error mesh {m:.3e}, single device {one:.3e} (gate: mesh <= "
+              f"{ACCURACY_FACTOR:g} x single + {slack:g}) {'ok' if good else 'FAIL'}")
+        out["cnn" if cnn else "rest"] = (m, one)
+    if not ok:
+        raise AssertionError(f"{what}: the mesh step is less accurate than "
+                             "the single-device step")
+    return out
+
+
+def f64_step(mesh, batch):
+    """The stage-1 step in float64 through the plain versions (no kernel),
+    over `mesh` (None: one device, the global batch): (metrics, gradients)."""
+    from plr2_tpu_torch import DenseFusionPipeline
+    from plr2_tpu_torch.parallel import make_train_step
+    b64 = {k: v.double() if torch.is_tensor(v) and v.is_floating_point() else v
+           for k, v in batch.items()}
+    pipe = DenseFusionPipeline(NUM_POINTS, NUM_OBJ, use_kernels=False,
+                               device=DEVICE, seed=0).cast(torch.float64)
+    step = make_train_step(pipe, SYM_LIST, W, LR, mesh=mesh, sym_slots=NUM_SYM)
+    met = run_step(step, b64, PAR_SEED)
+    out = met, grads_of(step.network)
+    del pipe, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def f64_gaps(what, mesh, batch, ref64, met32, grads32, single_met32,
+             single_grads32):
+    """`f64_step` over `mesh` against `ref64`, the one-device float64 step,
+    at STEP_TOL on every gradient, and the f32 steps' colour-encoder
+    gradients against `ref64` (`accuracy_gap`)."""
+    m64, g64 = f64_step(mesh, batch)
+    s64, r64 = ref64
+    gap64 = step_gap(f"{what} in float64 (plain versions)", m64, s64, g64, r64,
+                     STEP_TOL["loss"], STEP_TOL["grad_l2"], STEP_TOL["grad_l2"])
+    acc = accuracy_gap(f"{what} f32", grads32, single_grads32, r64,
+                       "the float64 single-device step", STEP_TOL["grad_l2"])
+    for name, m in (("mesh", met32), ("single device", single_met32)):
+        print(f"  {what} f32 {name}: loss {float(m['loss']):.9f} against "
+              f"float64 {float(s64['loss']):.9f}")
+    return gap64, acc
+
+
+def check_collectives(what, seen):
+    n = sum(seen.values())
+    print(f"  {what}: {seen} collectives")
+    if n < 1:
+        raise AssertionError(f"{what} launched no collective")
+
+
+def par_frames():
+    """F = SERVE_F make_scene frames of SERVE_K objects: run_frames' inputs."""
+    import numpy as np
+    scenes = [serve_scene(s) for s in range(SERVE_F)]
+    ids = np.arange(1, SERVE_K + 1)
+    frames = [serve_inputs(fr, m, d, ids)[0] for fr, m, d in scenes]
+    return [torch.stack(x) for x in zip(*frames)], torch.arange(SERVE_F, device=DEVICE)
+
+
+def par_run_frames(mesh, pipe, graphs, stacked, seeds, dt_name):
+    """run_frames over `mesh`, eagerly, after 0, ITERS and SERVE_ITERS
+    refine iterations (the hypotheses from the recorded confidences),
+    against two unsharded calls:
+    - on this rank's block of frames alone (the F / n frames whose crops
+      make its PoseNet batch): gated at POSE_TOL at every count in both
+      dtypes. This is what the mesh adds, and it should be nothing: the
+      line says whether the two are bit-equal;
+    - on all F frames: f32 gated at every count. A PoseNet batch of F / n
+      frames rounds cuDNN's bf16 convolutions otherwise than one of F, and
+      the seeded refiner amplifies that at each iteration (the serve
+      phase's rule), with no mesh at all: so beside the split, the block
+      call itself is held against the F call (the batch-size reading),
+      and bf16 is gated up to ITERS at that reading plus POSE_TOL.
+    Then the frames/s of the mesh and the F call at SERVE_ITERS, graphed
+    if `graphs`. Returns the frames/s, the kernel launches of the first
+    eager run over the mesh, and the largest |dt| of each comparison."""
+    from plr2_tpu_torch.ops import launch_counts, reset_launch_counts
+    from plr2_tpu_torch.serving import FrameEstimator, FramePoses
+    ax = mesh.axis("data")
+    blk = ax.block(SERVE_F, "the frames")
+
+    def estimator(iters, graphs_, mesh_=None):
+        return FrameEstimator(pipe, canvas=SERVE_CANVAS, refine_iterations=iters,
+                              graphs=graphs_, mesh=mesh_)
+
+    def rows(conf):  # this rank's frames' slots of an F-frame call
+        k = conf.shape[0] // SERVE_F
+        return conf[blk.start * k:blk.stop * k]
+    seen, gaps = None, {}
+    for iters in (0, ITERS, SERVE_ITERS):
+        sharded, whole = estimator(iters, False, mesh), estimator(iters, False)
+        reset_launch_counts()
+        got, cg = recorded_conf(pipe, lambda: sharded.run_frames(*stacked, seeds))
+        seen = seen or launch_counts()
+        part, cp = recorded_conf(pipe, lambda: whole.run_frames(
+            *(x[blk] for x in stacked), seeds[blk]))
+        mine = FramePoses(*(x[blk] for x in got))
+        exact = all(torch.equal(a, b) for a, b in zip(mine, part))
+        tag = f"run_frames over {mesh.shape} (F = {SERVE_F}, {iters} iterations)"
+        gaps[(iters, "block")] = same_poses(
+            f"{tag}: rank {mesh.rank}'s {blk.stop - blk.start} frames vs the "
+            f"unsharded call on them (bit-equal {exact})", dt_name, mine, part,
+            cg, cp)[1]
+        if ax.size == 1:  # the block is the whole
+            continue
+        ref, cr = recorded_conf(pipe, lambda: whole.run_frames(*stacked, seeds))
+        reading = same_poses(
+            f"  ... the unsharded call on those {blk.stop - blk.start} frames vs "
+            f"the F = {SERVE_F} call (no mesh)", dt_name, part,
+            FramePoses(*(x[blk] for x in ref)), cp, rows(cr), gated=False)
+        split = same_poses(f"{tag} vs the F = {SERVE_F} call", dt_name, got, ref,
+                           ax.gather_rows(cg), cr, dt_name == "f32")
+        gaps[(iters, "reading")], gaps[(iters, "whole")] = reading[1], split[1]
+        if dt_name != "f32" and iters <= ITERS:
+            # the split covers every rank's block: their largest readings
+            worst = ax.all_gather(torch.tensor(reading, device=DEVICE)).amax(0)
+            limit = [float(r) + POSE_TOL[dt_name] for r in worst]
+            ok = split[0] <= limit[0] and split[1] <= limit[1]
+            print(f"  {tag} bf16 vs the F = {SERVE_F} call: max |dq| {split[0]:.3e} "
+                  f"|dt| {split[1]:.3e} against the batch-size reading plus "
+                  f"{POSE_TOL[dt_name]:g}: {limit[0]:.3e} / {limit[1]:.3e} "
+                  f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"{tag}: the split differs from the F call "
+                                     "by more than the batch size explains")
+    sharded, whole = estimator(SERVE_ITERS, graphs, mesh), estimator(SERVE_ITERS, graphs)
+    ms = time_ms(lambda: sharded.run_frames(*stacked, seeds), 5)
+    ms_whole = time_ms(lambda: whole.run_frames(*stacked, seeds), 5)
+    return SERVE_F * 1e3 / ms, SERVE_F * 1e3 / ms_whole, seen, gaps
+
+
+def par_estimate(what, dt_name, pipe, ref_pipe, fn, inputs, gather=None):
+    """An estimate through `fn` against ref_pipe.estimate on `inputs`."""
+    got, cg = recorded_conf(pipe, lambda: fn(*inputs))
+    ref, cr = recorded_conf(ref_pipe, lambda: ref_pipe.estimate(*inputs, ITERS))
+    if gather is not None:
+        cg = gather(cg)
+    from plr2_tpu_torch.serving import FramePoses
+    valid = torch.ones(inputs[0].shape[0], dtype=torch.bool, device=DEVICE)
+
+    def poses(e):
+        return FramePoses(e.quat, e.trans, e.confidence, valid, ~valid)
+    same_poses(what, dt_name, poses(got), poses(ref), cg, cr)
+
+
+def par_nccl_steps(timings, launches):
+    """(a): the graphed data-parallel BatchTrainer step over a 1-rank NCCL
+    mesh, f32 and bf16, against the single-device step (the gates above
+    ACCURACY_FACTOR). Returns the float64 single-device step (`f64_step`), the
+    reference of the other steps' colour-encoder gradients."""
+    from plr2_tpu_torch import DenseFusionPipeline
+    from plr2_tpu_torch.ops import launch_counts, reset_launch_counts
+    from plr2_tpu_torch.parallel import make_mesh
+    from plr2_tpu_torch.train import BatchTrainer
+    batch = train_batch()
+    single_f32 = ref64 = None
+    for dt_name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        cfg = train_config(dtype="float32" if dt_name == "f32" else "bfloat16",
+                           batch_size=TRAIN_BATCH, sym_slots=NUM_SYM)
+        trainers = {}
+        for name, mesh, graphs in (("mesh", make_mesh(1), True),
+                                   ("single", None, False),
+                                   ("single_graph", None, True)):
+            pipe = DenseFusionPipeline(NUM_POINTS, NUM_OBJ, device=DEVICE, seed=0,
+                                       dtype=dtype)
+            tr = BatchTrainer(cfg, pipe=pipe, graphs=graphs, mesh=mesh)
+            trainers[name] = (tr, tr.stage_step(tr.init_state()))
+        tr, step = trainers["mesh"]
+        reset_launch_counts()
+        reset_collectives()
+        met = tr._step(step, batch, torch.Generator(device=DEVICE).manual_seed(PAR_SEED))
+        torch.cuda.synchronize()
+        seen, coll = launch_counts(), collectives()
+        launches[dt_name] = {k: launches[dt_name].get(k, 0) + v for k, v in seen.items()}
+        print(f"  graphed DP step ({dt_name}, 1-rank NCCL mesh, batch {TRAIN_BATCH}) "
+              f"warm-up + capture + replay: kernel launches {seen}")
+        check_collectives(f"graphed DP step {dt_name} (BN statistics, gradients, "
+                          "metrics; captured)", coll)
+        if seen["mlp_head"] < 3 or seen["upconv3x3_prelu"] < 3 or \
+                seen["gather_rows_backward"] < 1 or seen["nn_match"] < 1:
+            raise AssertionError(f"graphed DP step {dt_name}: launches {seen}")
+        if DEVICE == "cuda" and tr.graphs.captures != 1:
+            raise AssertionError(f"graphed DP step {dt_name}: "
+                                 f"{tr.graphs.captures} captures, not 1")
+        str_, sstep = trainers["single"]
+        ref = str_._step(sstep, batch, torch.Generator(device=DEVICE).manual_seed(PAR_SEED))
+        what = f"graphed DP step {dt_name}"
+        grads, single = grads_of(step.network), grads_of(sstep.network)
+        met, ref = ({k: float(v) for k, v in m.items()} for m in (met, ref))
+        if dt_name == "f32":
+            gap = step_gap(what, met, ref, grads, single, STEP_TOL["loss"],
+                           STEP_TOL["grad_l2"])
+            single_f32 = single
+        else:
+            gap = step_gap(what, met, ref, grads, single, MIXED_TOL["kernel_vs_plain"])
+            acc = accuracy_gap(what, grads, single, single_f32,
+                               "the f32 single-device step",
+                               MIXED_TOL["kernel_vs_plain"], (True, False))
+        timings[f"dp_graph_step_gap_{dt_name}"] = gap["cnn_grad_l2"]
+        timings[f"dp_graph_step_gap_rest_{dt_name}"] = gap["grad_l2"]
+        gtr, gstep = trainers["single_graph"]
+        gtr._step(gstep, batch, torch.Generator(device=DEVICE).manual_seed(PAR_SEED))
+        gen = torch.Generator(device=DEVICE)
+        for name in ("mesh", "single_graph", "single"):
+            t, s = trainers[name]
+            timings[f"step_ms_{name}_{dt_name}"] = time_ms(
+                lambda: t._step(s, batch, gen.manual_seed(PAR_SEED)), 5)
+        print(f"  step ms ({dt_name}): graphed 1-rank NCCL mesh "
+              f"{timings[f'step_ms_mesh_{dt_name}']:.3f}, graphed single device "
+              f"{timings[f'step_ms_single_graph_{dt_name}']:.3f}, eager single "
+              f"device {timings[f'step_ms_single_{dt_name}']:.3f}")
+        del trainers, tr, step, str_, sstep, gtr, gstep
+        torch.cuda.empty_cache()
+        if dt_name == "f32":  # the float64 twins, with the trainers freed
+            ref64 = f64_step(None, batch)
+            gap64, acc = f64_gaps("DP step, 1-rank NCCL mesh", make_mesh(1), batch,
+                                  ref64, met, grads, ref, single)
+            timings["dp_f64_grad_l2"] = max(gap64["grad_l2"], gap64["cnn_grad_l2"])
+        for part, (m, one) in acc.items():
+            timings[f"dp_graph_step_err_{part}_{dt_name}"] = m
+            timings[f"single_step_err_{part}_{dt_name}"] = one
+        del grads
+    return ref64
+
+
+def par_nccl_axes(timings, launches, ref64):
+    """(a): run_frames over the mesh, and the tensor-, point- and
+    pipeline-parallel steps on 1-rank NCCL meshes, f32."""
+    from plr2_tpu_torch import DenseFusionPipeline
+    from plr2_tpu_torch.ops import knn, launch_counts, reset_launch_counts
+    from plr2_tpu_torch.parallel import (make_inference_step, make_mesh,
+                                         make_pp_estimate_step,
+                                         make_sp_inference_step,
+                                         make_sp_train_step, make_train_step,
+                                         shard_pipeline, sp_match)
+    stacked, seeds = par_frames()
+    pipe = DenseFusionPipeline(SERVE_POINTS, NUM_OBJ, device=DEVICE, seed=0)
+    for dt_name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        if dtype != torch.float32:
+            pipe.cast(dtype)
+        reset_collectives()
+        rate, rate_whole, seen, _ = par_run_frames(make_mesh(1), pipe, True,
+                                                   stacked, seeds, dt_name)
+        launches[dt_name] = {k: launches[dt_name].get(k, 0) + v
+                             for k, v in seen.items()}
+        check_collectives(f"run_frames over a 1-rank mesh {dt_name}", collectives())
+        timings[f"run_frames_mesh1_fps_{dt_name}"] = rate
+        timings[f"run_frames_whole_fps_{dt_name}"] = rate_whole
+        print(f"  run_frames {dt_name} graphed: 1-rank mesh {rate:.1f} frames/s, "
+              f"unsharded {rate_whole:.1f}")
+    del pipe
+    batch = train_batch()
+    inputs = main_inputs(BATCH)
+
+    def pipes():
+        return [DenseFusionPipeline(NUM_POINTS, NUM_OBJ, device=DEVICE, seed=0)
+                for _ in range(2)]
+
+    def step_pair(what, step, ref_step, expect):
+        reset_launch_counts()
+        reset_collectives()
+        met = run_step(step, batch, PAR_SEED)
+        seen, coll = launch_counts(), collectives()
+        launches["f32"] = {k: launches["f32"].get(k, 0) + v for k, v in seen.items()}
+        print(f"  {what}: kernel launches {seen}")
+        check_collectives(what, coll)
+        if seen != expect:
+            raise AssertionError(f"{what}: expected launches {expect}, got {seen}")
+        ref = run_step(ref_step, batch, PAR_SEED)
+        grads, single = grads_of(step.network), grads_of(ref_step.network)
+        key = what.split()[0]
+        timings[f"{key}_grad_l2"] = step_gap(
+            what, met, ref, grads, single, STEP_TOL["loss"],
+            STEP_TOL["grad_l2"])["cnn_grad_l2"]
+        timings[f"{key}_err_cnn"] = accuracy_gap(
+            what, grads, single, ref64[1], "the float64 single-device step",
+            STEP_TOL["grad_l2"])["cnn"][0]
+        del grads, single
+        timings[f"step_ms_{key}"] = time_ms(
+            lambda: run_step(step, batch, PAR_SEED), 3)
+
+    # tensor parallelism over a (data, model) = (1, 1) mesh: kernel 1 does
+    # not run on the sliced heads (per-layer F.linear)
+    tp, ref = pipes()
+    mesh = make_mesh(1, ("data", "model"), shape=(1, 1))
+    shard_pipeline(mesh, tp)
+    reset_collectives()
+    par_estimate("tensor-parallel estimate", "f32", tp, ref,
+                 make_inference_step(tp, ITERS, mesh), inputs)
+    check_collectives("tensor-parallel estimate", collectives())
+    step_pair("tensor-parallel stage-1 step",
+              make_train_step(tp, SYM_LIST, W, LR, mesh=mesh, sym_slots=NUM_SYM),
+              make_train_step(ref, SYM_LIST, W, LR, sym_slots=NUM_SYM),
+              counts(upconv3x3_prelu=3, nn_match=1, gather_rows_backward=1))
+    # point parallelism over a 1-rank points axis
+    sp, ref = pipes()
+    mesh = make_mesh(1, ("points",))
+    reset_collectives()
+    par_estimate("point-parallel estimate", "f32", sp, ref,
+                 make_sp_inference_step(sp, mesh, ITERS), inputs)
+    check_collectives("point-parallel estimate", collectives())
+    step_pair("point-parallel stage-1 step",
+              make_sp_train_step(sp, mesh, SYM_LIST, W, LR, sym_slots=NUM_SYM),
+              make_train_step(ref, SYM_LIST, W, LR, sym_slots=NUM_SYM),
+              counts(mlp_head=3, upconv3x3_prelu=3, nn_match=1,
+                     gather_rows_backward=1))
+    # one sample's ADD-S queries (NUM_POINTS hypotheses x MESH_POINTS)
+    q = (batch["points"][0][:, None, :] + batch["model_points"][0]).reshape(-1, 3)
+    t = batch["target"][0].contiguous()
+    reset_collectives()
+    before = knn.launches["nn_match"]
+    got = sp_match(mesh, q, t)
+    n = knn.launches["nn_match"] - before
+    ok = n == 1 and torch.equal(got.view(torch.int32),
+                                knn.nn_match(q, t).view(torch.int32))
+    print(f"  sp_match over a 1-rank points axis ({q.shape[0]} queries x "
+          f"{t.shape[0]} targets): {n} launch of nn_match, bit-equal to "
+          f"nn_match {'ok' if ok else 'FAIL'}")
+    check_collectives("sp_match", collectives())
+    if not ok:
+        raise AssertionError("sp_match differs from nn_match")
+    # pipeline parallelism: one stage of ITERS iterations, 2 micro-batches
+    pp, ref = pipes()
+    reset_collectives()
+    par_estimate("pipelined estimate (1 stage x 2 iterations, 2 micro-batches)",
+                 "f32", pp, ref, make_pp_estimate_step(pp, make_mesh(1, ("pipe",)), 2,
+                                                       iters_per_stage=ITERS),
+                 inputs)
+    check_collectives("pipelined estimate", collectives())
+    del tp, sp, pp, ref
+    torch.cuda.empty_cache()
+
+
+def par_rank(frames_args):
+    """(b): one of 2 gloo ranks sharing the card (spawned, eager): the DP
+    step at batch TRAIN_BATCH (TRAIN_BATCH / 2 a rank) against the
+    single-device step on the global batch, run_frames with F = SERVE_F
+    split 4 / 4 against the unsharded call (f32 and bf16), sp_match
+    bit-equal to nn_match, the pipelined estimate with pipe = 2."""
+    from plr2_tpu_torch import DenseFusionPipeline
+    from plr2_tpu_torch.ops import knn, launch_counts, reset_launch_counts
+    from plr2_tpu_torch.parallel import (make_mesh, make_pp_estimate_step,
+                                         make_train_step, sp_match)
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    mesh = make_mesh(2)
+    rank = mesh.rank
+    batch = train_batch()
+    pm, ps = (DenseFusionPipeline(NUM_POINTS, NUM_OBJ, device=DEVICE, seed=0)
+              for _ in range(2))
+    step = make_train_step(pm, SYM_LIST, W, LR, mesh=mesh, sym_slots=NUM_SYM)
+    ref_step = make_train_step(ps, SYM_LIST, W, LR, sym_slots=NUM_SYM)
+    reset_launch_counts()
+    reset_collectives()
+    met = run_step(step, batch, PAR_SEED)
+    out["launches"], out["collectives"] = launch_counts(), collectives()
+    ref = run_step(ref_step, batch, PAR_SEED)
+    grads, single = grads_of(step.network), grads_of(ref_step.network)
+    what = f"rank {rank}: 2-rank gloo DP step"
+    out["dp_gap"] = step_gap(f"{what} f32", met, ref, grads, single,
+                             STEP_TOL["loss"], STEP_TOL["grad_l2"])
+    t0 = time.perf_counter()
+    for _ in range(3):
+        run_step(step, batch, PAR_SEED)
+    out["dp_step_ms"] = (time.perf_counter() - t0) / 3 * 1e3
+    del pm, ps, step, ref_step
+    torch.cuda.empty_cache()
+    # the float64 twins: the mesh step on both ranks, the one-device step
+    # and the comparisons on rank 0 (the mesh's gradients are the same on
+    # both)
+    if rank == 0:
+        ref64 = f64_step(None, batch)
+        gap64, acc = f64_gaps(what, mesh, batch, ref64, met, grads, ref, single)
+        out["dp_f64_grad_l2"] = max(gap64["grad_l2"], gap64["cnn_grad_l2"])
+        out["dp_err_cnn"] = acc["cnn"]
+        del ref64
+    else:
+        f64_step(mesh, batch)
+    del grads, single
+    torch.cuda.empty_cache()
+    stacked, seeds = frames_args
+    stacked, seeds = [x.to(DEVICE) for x in stacked], seeds.to(DEVICE)
+    pipe = DenseFusionPipeline(SERVE_POINTS, NUM_OBJ, device=DEVICE, seed=0)
+    for dt_name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        if dtype != torch.float32:
+            pipe.cast(dtype)
+        *out[f"fps_{dt_name}"], out[f"frames_launches_{dt_name}"], \
+            out[f"frames_dt_{dt_name}"] = par_run_frames(mesh, pipe, False, stacked,
+                                                         seeds, dt_name)
+    del pipe
+    # one sample's ADD-S queries (NUM_POINTS hypotheses x MESH_POINTS)
+    q = (batch["points"][0][:, None, :] + batch["model_points"][0]).reshape(-1, 3)
+    t = batch["target"][0].contiguous()
+    before = knn.launches["nn_match"]
+    got = sp_match(make_mesh(2, ("points",)), q, t)
+    out["sp_match_launches"] = knn.launches["nn_match"] - before
+    out["sp_match_equal"] = torch.equal(got.view(torch.int32),
+                                        knn.nn_match(q, t).view(torch.int32))
+    pp, ref_pipe = (DenseFusionPipeline(NUM_POINTS, NUM_OBJ, device=DEVICE, seed=0)
+                    for _ in range(2))
+    ring = make_mesh(2, ("pipe",))
+    par_estimate(f"rank {rank}: pipelined estimate (pipe = 2, 4 micro-batches)",
+                 "f32", pp, ref_pipe, make_pp_estimate_step(pp, ring, 4),
+                 main_inputs(BATCH), gather=ring.axis("pipe").gather_rows)
+    out["pp_ok"] = True
+    return out
+
+
+@phase("parallel")
+def parallel_phase():
+    """The parallel layer (plr2_tpu_torch/parallel/) on the card: (a) one
+    rank over NCCL: the graphed data-parallel BatchTrainer step (BN and
+    gradient collectives captured), run_frames over the mesh, the tensor-,
+    point- and pipeline-parallel steps; (b) two gloo ranks on the one card,
+    spawned, eager. Each against its single-device twin."""
+    import torch.distributed as dist
+    from plr2_tpu_torch.parallel import init_distributed
+    from plr2_tpu_torch.parallel.launch import spawn_ranks
+    timings = {}
+    launches = {"f32": {}, "bf16": {}}
+    init_distributed("nccl", f"tcp://localhost:{free_port()}", 0, 1)
+    torch.cuda.set_device(0)
+    try:
+        par_nccl_axes(timings, launches, par_nccl_steps(timings, launches))
+    finally:
+        dist.destroy_process_group()
+    stacked, seeds = par_frames()
+    t0 = time.perf_counter()
+    outs = spawn_ranks(par_rank, 2, (([x.cpu() for x in stacked], seeds.cpu()),),
+                       backend="gloo", threads=0, timeout=600)
+    print(f"  2 gloo ranks on one card: wall {time.perf_counter() - t0:.1f} s")
+    for r, o in enumerate(outs):
+        expect = counts(mlp_head=3, upconv3x3_prelu=3, nn_match=1,
+                        gather_rows_backward=1)
+        print(f"  rank {r}: DP step launches {o['launches']}, collectives "
+              f"{o['collectives']}, step {o['dp_step_ms']:.3f} ms (wall, both "
+              f"ranks on one card), run_frames {o['fps_f32'][0]:.1f} / "
+              f"{o['fps_bf16'][0]:.1f} frames/s f32 / bf16 (unsharded "
+              f"{o['fps_f32'][1]:.1f} / {o['fps_bf16'][1]:.1f}), sp_match "
+              f"{o['sp_match_launches']} launch, bit-equal {o['sp_match_equal']}")
+        if o["launches"] != expect or sum(o["collectives"].values()) < 1:
+            raise AssertionError(f"rank {r}: DP step launches {o['launches']}, "
+                                 f"expected {expect}")
+        if not o["sp_match_equal"] or o["sp_match_launches"] != 1 or not o["pp_ok"]:
+            raise AssertionError(f"rank {r}: sp_match / pipelined estimate failed")
+        for dt_name in ("f32", "bf16"):
+            seen = o[f"frames_launches_{dt_name}"]
+            launches[dt_name] = {k: launches[dt_name].get(k, 0) + v
+                                 for k, v in seen.items()}
+        launches["f32"] = {k: launches["f32"].get(k, 0) + v
+                           for k, v in o["launches"].items()}
+        timings[f"gloo2_dp_step_ms_rank{r}"] = o["dp_step_ms"]
+        timings[f"gloo2_run_frames_fps_f32_rank{r}"] = o["fps_f32"][0]
+        timings[f"gloo2_run_frames_fps_bf16_rank{r}"] = o["fps_bf16"][0]
+        timings[f"gloo2_dp_grad_l2_rank{r}"] = o["dp_gap"]["cnn_grad_l2"]
+        for dt_name in ("f32", "bf16"):
+            for (iters, kind), dt in o[f"frames_dt_{dt_name}"].items():
+                key = f"gloo2_frames_dt_{dt_name}_{kind}_{iters}"
+                timings[key] = max(timings.get(key, 0.0), dt)
+        if r == 0:
+            timings["gloo2_dp_f64_grad_l2"] = o["dp_f64_grad_l2"]
+            (timings["gloo2_dp_err_cnn_mesh"],
+             timings["gloo2_dp_err_cnn_single"]) = o["dp_err_cnn"]
+    return launches, timings
+
+
+def add_parallel_launches(entries, launches):
+    """The parallel phase's launches (per dtype; the dtype-free kernels
+    summed) into the kernels line as "parallel"."""
+    for e in entries:
+        kname, _, dt_name = e["name"].rpartition("_")
+        if kname in SOURCES and dt_name in launches:
+            n = launches[dt_name].get(kname, 0)
+        elif e["name"] in launches["f32"]:
+            n = sum(launches[d].get(e["name"], 0) for d in launches)
+        else:
+            continue
+        e["launches_by_path"]["parallel"] = n
+        e["launches"] += n
+
+
 def main():
     t0 = time.perf_counter()
     import_port()
@@ -4463,6 +5082,9 @@ def main():
     torch.cuda.empty_cache()
     seg_launches, seg_table, seg = segmentation_phase(errs)
     add_seg_launches(entries, seg_launches, seg_table)
+    torch.cuda.empty_cache()
+    par_launches, par = parallel_phase()
+    add_parallel_launches(entries, par_launches)
     for e in entries:  # the decoder's error now covers the segmenter's shapes
         kname, _, dt_name = e["name"].rpartition("_")
         if kname == "upconv3x3_prelu":
@@ -4482,6 +5104,7 @@ def main():
           f"tf32 {json.dumps({k: round(v, 6) for k, v in tf32.items()})}, "
           f"real data {json.dumps({k: round(v, 4) for k, v in real.items()})}, "
           f"segmentation {json.dumps({k: round(v, 4) for k, v in seg.items()})}, "
+          f"parallel {json.dumps({k: round(v, 4) for k, v in par.items()})}, "
           f"estimate profiles {json.dumps({d: {k: round(v, 3) for k, v in p.items()} for d, p in est_profile.items()})}")
     print(smi)
     print(json.dumps({"kernels": entries}))

@@ -19,8 +19,9 @@ Fields that the port reads differently:
   (`DenseFusionPipeline(dtype=torch.bfloat16)`).
 - `TrainConfig.workers > 0` feeds the trainers from the native data
   plane in that many threads (`data/prefetch.py`);
-  `PipelineConfig.data_parallel > 1` and `model_parallel > 1` raise
-  NotImplementedError in the trainers.
+  `PipelineConfig.data_parallel > 1` and `model_parallel > 1` run
+  `BatchTrainer` over a process-group mesh (`parallel/`); the per-sample
+  trainers refuse them.
 - `DatasetConfig.noise_trans` is the translation noise that both of the
   trainers' sample iterators draw (JAX's inline iterator draws 0.03).
 - `TrainConfig.sym_slots` sizes `BatchTrainer`'s ADD-S compaction as in
@@ -113,9 +114,9 @@ class PipelineConfig:
     train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
     # inference-time refinement iterations (BASELINE config 4 => 2, config 5 => 4)
     eval_refine_iterations: int = 2
-    # data-parallel axis size; > 1 raises in the port (one device)
+    # data-parallel axis size (BatchTrainer over a process-group mesh)
     data_parallel: int = 1
-    # tensor-parallel mesh axis size; > 1 raises in the port
+    # tensor-parallel `model` axis size (BatchTrainer's (data, model) mesh)
     model_parallel: int = 1
 
 

@@ -19,6 +19,20 @@ from `generator` or are passed in (`masks`, drawn beforehand by
 `PSPNet.draw_dropout_masks`); the heads keep their kernel, which has a backward
 (`ops.mlp_head.mlp_head` is an autograd Function). Under
 `models.remat.rematerialised` the forward checkpoints its stages.
+
+The parallel layer (`parallel/`) sets two mesh axes (`parallel.mesh.Axis`)
+on the networks and their trunks, JAX's `points_axis` and the `model` axis
+of its tensor-parallel shardings:
+- `points_axis`: cloud and choose hold one contiguous block of the points;
+  the trunks' global point means become the mean over the axis
+  (`_global_point_mean`, JAX's pmean).
+- `model_axis`: the column / row pairs of `parallel/tensor_parallel.py`
+  hold this rank's slices of their weights (feat conv5 -> conv6, the
+  PoseNet heads conv1 -> conv2 and conv3 -> conv4, the refiner heads conv1
+  -> conv2), and run as per-layer `F.linear` on the slices with Megatron's
+  f / g pair around each pair (`_tp_pair`): JAX's XLA head path, which
+  tensor parallelism needs there too. Kernel 1 consumes whole weights in
+  one launch, so it does not run on tensor-parallel heads.
 """
 
 from __future__ import annotations
@@ -43,6 +57,33 @@ def _lin(layer: nn.Module, x: torch.Tensor) -> torch.Tensor:
     return F.linear(x, _weight2d(layer), layer.bias)
 
 
+def _global_point_mean(y: torch.Tensor, points_axis, keepdim: bool):
+    """Mean over the point axis (dim 1), across `points_axis` when set:
+    the mean of the equal-sized blocks' means."""
+    local = y.mean(1, keepdim=keepdim)
+    return local if points_axis is None else points_axis.pmean(local)
+
+
+def _tp_pair(col: nn.Module, row: nn.Module, x: torch.Tensor, axis,
+             relu_out: bool = True) -> torch.Tensor:
+    """A column-parallel layer then a row-parallel one on this rank's
+    weight slices: the input's gradient and the row layer's partial sums
+    are summed over `axis` (f and g), and the row layer's replicated bias
+    is added once, after the sum."""
+    h = F.relu(F.linear(axis.copy(x), _weight2d(col), col.bias))
+    y = axis.reduce(F.linear(h, _weight2d(row))) + row.bias
+    return F.relu(y) if relu_out else y
+
+
+def _pair(col: nn.Module, row: nn.Module, x: torch.Tensor, axis,
+          relu_out: bool = True) -> torch.Tensor:
+    """Two layers, sliced over `axis` when it is set (`_tp_pair`)."""
+    if axis is not None:
+        return _tp_pair(col, row, x, axis, relu_out)
+    y = _lin(row, F.relu(_lin(col, x)))
+    return F.relu(y) if relu_out else y
+
+
 def _two_scale(m: nn.Module, cloud, emb):
     x = F.relu(_lin(m.conv1, cloud))
     e = F.relu(_lin(m.e_conv1, emb))
@@ -63,13 +104,13 @@ class PoseNetFeat(nn.Module):
         self.e_conv2 = nn.Conv1d(64, 128, 1)
         self.conv5 = nn.Conv1d(256, 512, 1)
         self.conv6 = nn.Conv1d(512, 1024, 1)
+        self.points_axis = self.model_axis = None
 
     def forward(self, cloud, emb):
         feat_1, feat_2 = _two_scale(self, cloud, emb)
-        y = F.relu(_lin(self.conv5, feat_2))
-        y = F.relu(_lin(self.conv6, y))
-        glob = y.mean(1, keepdim=True).expand(-1, y.shape[1], -1)
-        return torch.cat([feat_1, feat_2, glob], -1)
+        y = _pair(self.conv5, self.conv6, feat_2, self.model_axis)
+        glob = _global_point_mean(y, self.points_axis, True)
+        return torch.cat([feat_1, feat_2, glob.expand(-1, y.shape[1], -1)], -1)
 
 
 def select_obj(h: torch.Tensor, obj: torch.Tensor, num_obj: int,
@@ -90,6 +131,7 @@ class PoseNet(nn.Module):
         self.num_obj = num_obj
         self.use_kernels = use_kernels
         self.remat = False  # models/remat.py `rematerialised`
+        self.model_axis = None  # module docstring
         self.cnn = ModifiedResnet(emb_dim, use_kernels)
         self.feat = PoseNetFeat()
         for tag, od in self.HEADS:
@@ -108,7 +150,11 @@ class PoseNet(nn.Module):
         outs = []
         for tag, od in self.HEADS:
             layers = [getattr(self, f"conv{i}_{tag}") for i in range(1, 5)]
-            h = head(x2d, [(_weight2d(m), m.bias) for m in layers])
+            if self.model_axis is not None:
+                h = _tp_pair(*layers[:2], x2d, self.model_axis)
+                h = _tp_pair(*layers[2:], h, self.model_axis, relu_out=False)
+            else:
+                h = head(x2d, [(_weight2d(m), m.bias) for m in layers])
             outs.append(select_obj(h.reshape(b, n, -1), obj, self.num_obj, od))
         pred_r, pred_t, pred_c = outs
         return pred_r, pred_t, torch.sigmoid(pred_c), emb
@@ -125,12 +171,13 @@ class PoseRefineNetFeat(nn.Module):
         self.e_conv2 = nn.Conv1d(64, 128, 1)
         self.conv5 = nn.Conv1d(384, 512, 1)
         self.conv6 = nn.Conv1d(512, 1024, 1)
+        self.points_axis = self.model_axis = None
 
     def forward(self, cloud, emb):
         feat_1, feat_2 = _two_scale(self, cloud, emb)
-        y = F.relu(_lin(self.conv5, torch.cat([feat_1, feat_2], -1)))
-        y = F.relu(_lin(self.conv6, y))
-        return y.mean(1)
+        y = _pair(self.conv5, self.conv6, torch.cat([feat_1, feat_2], -1),
+                  self.model_axis)
+        return _global_point_mean(y, self.points_axis, False)
 
 
 class PoseRefineNet(nn.Module):
@@ -144,6 +191,7 @@ class PoseRefineNet(nn.Module):
             setattr(self, f"conv1_{tag}", nn.Linear(1024, 512))
             setattr(self, f"conv2_{tag}", nn.Linear(512, 128))
             setattr(self, f"conv3_{tag}", nn.Linear(128, num_obj * od))
+        self.model_axis = None  # PoseNet's docstring
 
     def forward(self, cloud, emb, obj):
         dt = self.conv1_r.weight.dtype
@@ -151,8 +199,8 @@ class PoseRefineNet(nn.Module):
         b = feat.shape[0]
         outs = []
         for tag, od in self.HEADS:
-            h = F.relu(getattr(self, f"conv1_{tag}")(feat))
-            h = F.relu(getattr(self, f"conv2_{tag}")(h))
+            h = _pair(getattr(self, f"conv1_{tag}"), getattr(self, f"conv2_{tag}"),
+                      feat, self.model_axis)
             h = getattr(self, f"conv3_{tag}")(h).reshape(b, self.num_obj, od)
             idx = obj.long().reshape(b, 1, 1).expand(b, 1, od)
             outs.append(torch.gather(h, 1, idx))

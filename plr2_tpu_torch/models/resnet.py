@@ -34,11 +34,19 @@ class BatchNorm2d(nn.BatchNorm2d):
     alone: a rematerialised forward (`torch.utils.checkpoint`) runs the
     layer a second time, and JAX's functional `jax.checkpoint` updates
     them once.
+
+    `bn_axis` (set by `synced_statistics`; flax's `axis_name`) is a mesh
+    axis (`parallel.mesh.Axis`) whose ranks each hold a block of one
+    global batch: train mode then takes its statistics over the global
+    batch, as a single device does, by summing the blocks' sums of x and
+    x^2 and their counts over the axis (differentiable: the backward sums
+    the gradients over the axis too), then E[x] and E[x^2] as flax does.
     """
 
     def __init__(self, num_features: int):
         super().__init__(num_features, eps=1e-5, momentum=0.1)
         self.update_statistics = True
+        self.bn_axis = None
 
     def forward(self, x):
         if x.dtype != self.weight.dtype:
@@ -51,19 +59,37 @@ class BatchNorm2d(nn.BatchNorm2d):
     def _forward(self, x):
         if not self.training:
             return super().forward(x)
+        if self.bn_axis is not None:
+            return self._forward_synced(x)
         if self.update_statistics:
-            self._update(x)
+            with torch.no_grad():
+                xf = x.to(torch.promote_types(x.dtype, torch.float32))
+                mean = xf.mean((0, 2, 3))
+                self._update(mean, (xf * xf).mean((0, 2, 3)))
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
                             self.eps)
 
-    def _update(self, x):
-        with torch.no_grad():
-            xf = x.to(torch.promote_types(x.dtype, torch.float32))
-            mean = xf.mean((0, 2, 3))
-            var = torch.clamp((xf * xf).mean((0, 2, 3)) - mean * mean, min=0.0)
-            self.running_mean.mul_(0.9).add_(0.1 * mean)
-            self.running_var.mul_(0.9).add_(0.1 * var)
-            self.num_batches_tracked.add_(1)
+    def _forward_synced(self, x):
+        c = x.shape[1]
+        count = torch.full((1,), float(x.numel() // c), dtype=x.dtype,
+                           device=x.device)
+        sums = self.bn_axis.psum(torch.cat([x.sum((0, 2, 3)),
+                                            (x * x).sum((0, 2, 3)), count]))
+        mean, mean2 = sums[:c] / sums[2 * c], sums[c:2 * c] / sums[2 * c]
+        if self.update_statistics:
+            with torch.no_grad():
+                self._update(mean.detach(), mean2.detach())
+        var = torch.clamp(mean2 - mean * mean, min=0.0)
+        scale = torch.rsqrt(var + self.eps) * self.weight
+        return ((x - mean[None, :, None, None]) * scale[None, :, None, None]
+                + self.bias[None, :, None, None])
+
+    def _update(self, mean, mean2):
+        """flax's running-average update from E[x] and E[x^2]."""
+        var = torch.clamp(mean2 - mean * mean, min=0.0)
+        self.running_mean.mul_(0.9).add_(0.1 * mean)
+        self.running_var.mul_(0.9).add_(0.1 * var)
+        self.num_batches_tracked.add_(1)
 
 
 def batchnorm_buffers(module: nn.Module) -> list:
@@ -85,6 +111,20 @@ def frozen_statistics(module: nn.Module):
     finally:
         for m in layers:
             m.update_statistics = True
+
+
+@contextlib.contextmanager
+def synced_statistics(module: nn.Module, axis):
+    """Within the block every `BatchNorm2d` of `module` takes its train-mode
+    statistics over `axis` (a `parallel.mesh.Axis`; None: no change)."""
+    layers = [m for m in module.modules() if isinstance(m, BatchNorm2d)]
+    for m in layers:
+        m.bn_axis = axis
+    try:
+        yield
+    finally:
+        for m in layers:
+            m.bn_axis = None
 
 
 class BasicBlock(nn.Module):

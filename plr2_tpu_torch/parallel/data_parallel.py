@@ -1,6 +1,6 @@
-"""One optimizer step of DenseFusion training on one device, the port of
-plr2_tpu/parallel/data_parallel.py `make_train_step` and `adam_update`
-(single device: `mesh=None`; the mesh waits for the parallel layer).
+"""One optimizer step of DenseFusion training, the port of
+plr2_tpu/parallel/data_parallel.py `make_train_step`, `adam_update` and
+`make_inference_step`, on one device or over a mesh's `data` axis.
 
 Two stages, as in the JAX package (reference stage semantics):
 
@@ -63,7 +63,9 @@ import torch
 from plr2_tpu_torch.losses.add_loss import pose_loss
 from plr2_tpu_torch.losses.refine_loss import refine_loss
 from plr2_tpu_torch.models.remat import rematerialised
-from plr2_tpu_torch.pipeline import full_f32
+from plr2_tpu_torch.models.resnet import synced_statistics
+from plr2_tpu_torch.parallel.mesh import shard_batch
+from plr2_tpu_torch.pipeline import PoseEstimate, full_f32
 
 BATCH_KEYS = ("img", "points", "choose", "target", "model_points", "idx")
 
@@ -114,13 +116,17 @@ class TrainStep:
     draws stage 1's dropout masks. `optimizer` (over the stage's network:
     PoseNet in stage 1, PoseRefineNet in the refine stage) is the
     caller's; without one the step builds `adam(network, lr)`, and with
-    neither it can only `accumulate`."""
+    neither it can only `accumulate`. With `mesh` the batch is the global
+    batch, the same on every rank (module docstring)."""
 
     def __init__(self, pipe, sym_list: Sequence[int], w: float,
                  lr: Optional[float] = None, refine_iterations: int = 0,
                  optimizer: Optional[torch.optim.Optimizer] = None,
-                 remat: bool = False, sym_slots: Optional[int] = None):
+                 remat: bool = False, sym_slots: Optional[int] = None,
+                 mesh=None):
         self.pipe = pipe
+        self.mesh = mesh
+        self.data_axis = None if mesh is None else mesh.axis("data")
         self.sym_list = tuple(sym_list)
         self.w = w
         self.refine_iterations = refine_iterations
@@ -147,6 +153,18 @@ class TrainStep:
         return {k: torch.as_tensor(batch[k]).to(self.pipe.device)
                 for k in BATCH_KEYS}
 
+    def local(self, batch: Mapping) -> Mapping:
+        """This rank's block of a host batch (`BATCH_KEYS` and `obj`; the
+        batch itself without a mesh)."""
+        if self.mesh is None:
+            return batch
+        keys = BATCH_KEYS + (("obj",) if "obj" in batch else ())
+        return shard_batch(self.mesh, {k: batch[k] for k in keys})
+
+    def count_symmetric(self, batch: Mapping) -> Optional[int]:
+        """The symmetric samples of this rank's block of `batch`."""
+        return count_symmetric(self.local(batch), self.sym_list)
+
     def dropout_masks(self, batch_size: int,
                       generator: Optional[torch.Generator],
                       window: bool = False):
@@ -171,6 +189,11 @@ class TrainStep:
         masks = self.dropout_masks(b["idx"].shape[0], generator, window)
         b["masks"] = None if masks is None else tuple(
             None if m is None else m.to(self.pipe.device) for m in masks)
+        if self.mesh is not None:
+            if window:
+                raise ValueError("a window of per-sample steps does not run "
+                                 "on a mesh")
+            b = shard_batch(self.mesh, b)
         return b
 
     def _posenet(self, b, masks):
@@ -180,7 +203,8 @@ class TrainStep:
 
     def _stage1_loss(self, b, masks, n_sym, slots):
         self.pipe.posenet.train()
-        pred_r, pred_t, pred_c, _ = self._posenet(b, masks)
+        with synced_statistics(self.pipe.posenet, self.data_axis):
+            pred_r, pred_t, pred_c, _ = self._posenet(b, masks)
         out = pose_loss(pred_r, pred_t, pred_c, b["target"],
                         b["model_points"], b["idx"], b["points"], w=self.w,
                         refine=False, sym_list=self.sym_list,
@@ -218,7 +242,21 @@ class TrainStep:
             loss.backward()
         self.pipe.posenet.eval()
         self.pipe.refiner.eval()
-        return loss.detach(), dis.detach()
+        if self.data_axis is None:
+            return loss.detach(), dis.detach()
+        self.reduce_gradients()
+        metrics = self.data_axis.all_reduce_(
+            torch.stack([loss.detach(), dis.detach()]).float())
+        metrics = metrics / self.data_axis.size
+        return metrics[0], metrics[1]
+
+    def reduce_gradients(self) -> None:
+        """Average the network's gradients over the mesh's `data` axis, in
+        one all-reduce of one flat buffer. The gradients must hold this
+        step's alone: the step zeroes them before its backward."""
+        self.data_axis.all_reduce_tensors_(
+            [p.grad for p in self.network.parameters() if p.grad is not None],
+            mean=True)
 
     def accumulate(self, batch: Mapping,
                    generator: torch.Generator = None):
@@ -226,8 +264,7 @@ class TrainStep:
         the network's `.grad` (no optimizer step). Returns (loss, dis),
         0-d tensors, not synchronised."""
         b = self.inputs(batch, generator)
-        return self._backward(b, b["masks"],
-                              count_symmetric(batch, self.sym_list),
+        return self._backward(b, b["masks"], self.count_symmetric(batch),
                               self.sym_slots)
 
     def program(self, inputs: Mapping, n_sym: Optional[int] = None,
@@ -270,13 +307,29 @@ class TrainStep:
 def make_train_step(pipe, sym_list: Sequence[int], w: float,
                     lr: Optional[float] = None, refine_iterations: int = 0,
                     optimizer: Optional[torch.optim.Optimizer] = None,
-                    remat: bool = False, sym_slots: Optional[int] = None
-                    ) -> TrainStep:
+                    remat: bool = False, sym_slots: Optional[int] = None,
+                    mesh=None) -> TrainStep:
     """The train step of `pipe` (a `DenseFusionPipeline`): stage 1 with
     `refine_iterations=0`, else the refine stage; Adam at `lr` unless the
     caller passes its `optimizer`. `remat` rematerialises PoseNet's
     forward in the backward; `sym_slots=K` runs the stage-1 ADD-S match of
     a mixed batch with at most K symmetric samples on K compacted slots
-    (`pose_loss(max_sym_slots=K)`; exact)."""
+    (`pose_loss(max_sym_slots=K)`; exact); `mesh` splits the batch over
+    its `data` axis (module docstring)."""
     return TrainStep(pipe, sym_list, w, lr, refine_iterations, optimizer,
-                     remat, sym_slots)
+                     remat, sym_slots, mesh)
+
+
+def make_inference_step(pipe, refine_iterations: int = 2, mesh=None):
+    """`infer(img, points, choose, idx) -> PoseEstimate`: `pipe.estimate`
+    on the batch; with `mesh`, each rank estimates its block of the batch
+    (the same global batch on every rank) and the poses are gathered back
+    to every rank."""
+    def infer(img, points, choose, idx) -> PoseEstimate:
+        if mesh is None:
+            return pipe.estimate(img, points, choose, idx, refine_iterations)
+        est = pipe.estimate(*shard_batch(mesh, [img, points, choose, idx]),
+                            refine_iterations=refine_iterations)
+        data = mesh.axis("data")
+        return PoseEstimate(*(data.gather_rows(x) for x in est))
+    return infer

@@ -48,8 +48,13 @@ into the segmenter's parameters in place, so a graph already captured
 replays with them; casting the segmenter (new parameter storage) drops
 the graphs, as `pipe.cast` does.
 
-Not ported: the frame batch sharded over a mesh (`mesh`, ROADMAP A7): it
-raises.
+Frames over a mesh (`mesh`, a `parallel.mesh.Mesh` with a `data` axis
+of n ranks, each with its own estimator and pipeline on its device):
+`run_frames` is given the same F frames on every rank, F divisible by n;
+each rank runs its contiguous block of F / n frames through its own graph,
+and the `FramePoses` of all F frames come back to every rank (an exact
+gather, `Axis.gather_rows`). `run` and `run_with_samples` ignore the mesh,
+as JAX's do.
 """
 
 from __future__ import annotations
@@ -107,6 +112,8 @@ class FrameEstimator:
         s^2 less segmenter work, at s-pixel mask quantisation.
     graphs: on a CUDA pipeline, capture one CUDA graph per knob set and
         replay it (True), or run the program eagerly (False).
+    mesh: a mesh whose `data` axis splits `run_frames`' frames (module
+        docstring).
     """
 
     def __init__(self, pipe: DenseFusionPipeline, *, canvas: int = 240,
@@ -118,11 +125,8 @@ class FrameEstimator:
             raise ValueError("canvas must fit inside the frame")
         if seg_scale < 1:
             raise ValueError("seg_scale must be >= 1")
-        if mesh is not None:
-            raise NotImplementedError(
-                "not ported: run_frames sharded over a mesh: ROADMAP A7 "
-                "(parallel layer)")
         self.pipe = pipe
+        self.data_axis = None if mesh is None else mesh.axis("data")
         self.canvas = canvas
         self.img_h = img_h
         self.img_w = img_w
@@ -361,8 +365,14 @@ class FrameEstimator:
         """F frames at once (a leading F axis on every argument; obj_ids
         (F, K), keys (F,) frame seeds, key_words (F, K, 2)): FramePoses
         with (F, K, ...) fields. The F*K crops share one PoseNet batch and
-        the F frames one segmenter batch."""
+        the F frames one segmenter batch. Over a mesh each rank runs its
+        block of the frames and every rank gets the poses of all F."""
         self._load_seg(seg_variables)
-        return self._dispatch(False, self._inputs(
-            colors, depths, labels, obj_ids, model_points, intr_vecs, keys,
-            key_words, target_r, target_t))
+        args = self._inputs(colors, depths, labels, obj_ids, model_points,
+                            intr_vecs, keys, key_words, target_r, target_t)
+        if self.data_axis is None:
+            return self._dispatch(False, args)
+        rows = self.data_axis.block(args[3].shape[0], "run_frames' frames")
+        poses = self._dispatch(False, tuple(
+            a if a is None or a.dim() == 0 else a[rows] for a in args))
+        return FramePoses(*(self.data_axis.gather_rows(x) for x in poses))

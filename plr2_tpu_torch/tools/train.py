@@ -7,6 +7,8 @@ surface) over this package's trainers:
       --dataset_root /data/Linemod_preprocessed --workers 4 --cache_mb 2048
   python -m plr2_tpu_torch.tools.train --dataset ycb \
       --dataset_root /data/YCB_Video_Dataset --workers 4
+  torchrun --nproc_per_node N -m plr2_tpu_torch.tools.train \
+      --synthetic --data_parallel N                          # N cards
 
 Runs `Trainer` (per-sample accumulation), `FusedTrainer` (--fused) or
 `BatchTrainer` (--batched, or --data_parallel 1 as in the JAX CLI) `.fit`
@@ -25,10 +27,17 @@ caches decoded frames (`data/frame_cache.py`), and `--noise_trans` sets
 iterators draw (JAX stores it on the datasets, where no path reads it,
 and draws 0.03). Flags of the JAX CLI that this port does not run raise
 NotImplementedError with the ROADMAP item that brings them: --config
-(YAML), --data_parallel / --model_parallel > 1, --pretrained_trunk. On
-the card --fused runs each accumulation window, and --batched each
-step's forward and backward, as one CUDA graph; --sym_slots sizes
---batched mode's ADD-S compaction, as in the JAX CLI.
+(YAML), --pretrained_trunk. On the card --fused runs each accumulation
+window, and --batched each step's forward and backward, as one CUDA
+graph; --sym_slots sizes --batched mode's ADD-S compaction, as in the JAX
+CLI.
+
+--data_parallel D / --model_parallel M with D x M > 1 run `BatchTrainer`
+over a (data, model) mesh of D x M ranks, one process a rank under
+torchrun (`--nproc_per_node D*M`); the world size must equal D x M.
+Every rank joins the process group from torchrun's environment: over NCCL
+with rank r on `cuda:LOCAL_RANK`, or with --cpu over gloo on the CPU. Only
+rank 0 logs and writes checkpoints.
 """
 
 from __future__ import annotations
@@ -79,9 +88,13 @@ def parse_args(argv=None):
     p.add_argument("--batched_test", action="store_true",
                    help="batched test loop in the per-sample / --fused modes")
     p.add_argument("--data_parallel", type=int, default=0,
-                   help="> 1 not ported (one device)")
+                   help="split each batch over this many ranks (torchrun; "
+                        "implies --batched)")
     p.add_argument("--model_parallel", type=int, default=0,
-                   help="> 1 not ported (one device)")
+                   help="tensor-parallel `model` axis: slice the fusion "
+                        "trunks' and heads' column / row pairs over this "
+                        "many ranks of a (data_parallel, N) mesh (torchrun; "
+                        "implies --batched)")
     p.add_argument("--sym_slots", type=int, default=0,
                    help="batched-mode ADD-S compaction slots (-1 auto, 0 off)")
     p.add_argument("--cache_mb", type=int, default=0,
@@ -101,8 +114,6 @@ def refuse_unsupported(args) -> None:
     refused = [
         (args.config, "--config (YAML) needs config_io.py, which needs "
                       "PyYAML: ROADMAP A8"),
-        (args.data_parallel > 1 or args.model_parallel > 1,
-         "--data_parallel / --model_parallel > 1 (the mesh): ROADMAP A7"),
         (args.pretrained_trunk, "--pretrained_trunk (torch_import.py): "
                                 "ROADMAP A8"),
     ]
@@ -143,6 +154,8 @@ def build_config(args):
         cfg.dataset, root=args.dataset_root, noise_trans=args.noise_trans))
     if args.data_parallel:
         cfg = dataclasses.replace(cfg, data_parallel=args.data_parallel)
+    if args.model_parallel:
+        cfg = dataclasses.replace(cfg, model_parallel=args.model_parallel)
     return with_sizes(cfg, args.num_points, args.mesh_points)
 
 
@@ -186,9 +199,42 @@ def with_sizes(cfg, num_points=None, mesh_points=None):
             num_mesh_points=mesh_points or cfg.dataset.num_mesh_points))
 
 
+def join_mesh(args):
+    """Join torchrun's process group for a D x M mesh: (device, rank), or
+    ("cpu" / "cuda", 0) without a mesh. Raises SystemExit unless the world
+    size is D x M."""
+    ranks = max(args.data_parallel, 1) * max(args.model_parallel, 1)
+    if ranks == 1:
+        return ("cpu" if args.cpu else "cuda"), 0
+    world = int(os.environ.get("WORLD_SIZE", 1))
+    if world != ranks:
+        raise SystemExit(
+            f"--data_parallel {max(args.data_parallel, 1)} x --model_parallel "
+            f"{max(args.model_parallel, 1)} needs {ranks} ranks, but the world "
+            f"size is {world}: run under torchrun --nproc_per_node {ranks}")
+    from plr2_tpu_torch.parallel import init_distributed
+    if args.cpu:
+        rank, _, _ = init_distributed("gloo")
+        return "cpu", rank
+    import torch
+    rank, _, local_rank = init_distributed("nccl")
+    torch.cuda.set_device(local_rank)
+    return f"cuda:{local_rank}", rank
+
+
 def main(argv=None):
     args = parse_args(argv)
     refuse_unsupported(args)
+    device, rank = join_mesh(args)
+    try:
+        return train(args, device, rank)
+    finally:
+        import torch.distributed as dist
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def train(args, device, rank: int):
     from plr2_tpu_torch.train import (BatchTrainer, CheckpointManager,
                                       FusedTrainer, Trainer)
     from plr2_tpu_torch.utils import GracefulInterrupt, setup_logger
@@ -197,23 +243,29 @@ def main(argv=None):
     train_ds, test_ds = build_datasets(args, cfg)
     logger = setup_logger(
         "train", os.path.join(args.log_dir, f"train_{args.dataset}.log"))
+    if rank:
+        logger.disabled = True  # rank 0 logs for the mesh
     kind = (BatchTrainer if batched_mode(args)
             else FusedTrainer if cfg.train.fused_accum else Trainer)
     # the first SIGTERM / SIGINT latches from here on; fit stops at the
     # next sample boundary and saves `last` (auto-resume replays the epoch)
     with GracefulInterrupt() as stop:
-        trainer = kind(cfg, device="cpu" if args.cpu else "cuda")
+        trainer = kind(cfg, device=device)
         state = trainer.init_state()
         ckpt = CheckpointManager(os.path.join(args.outf, args.dataset))
         if args.resume_posenet or args.resume_refinenet:
-            state = ckpt.restore_into(state, tag=args.resume_posenet or "best")
+            state = trainer.restore_into(ckpt, state,
+                                         args.resume_posenet or "best")
             logger.info(f"resumed from epoch {state.epoch} "
                         f"(best_test={state.best_test:.5f})")
         elif ckpt.restore("last") is not None:
-            state = ckpt.restore_into(state, tag="last")
+            state = trainer.restore_into(ckpt, state, "last")
             logger.info(f"auto-resumed from last checkpoint (epoch {state.epoch})")
+        mesh = ("" if trainer.mesh is None else
+                f", data_parallel={cfg.data_parallel}, "
+                f"model_parallel={cfg.model_parallel}")
         logger.info(f"training {args.dataset} ({kind.__name__}, "
-                    f"{trainer.device}, "
+                    f"{trainer.device}{mesh}, "
                     f"{'synthetic' if args.synthetic else args.dataset_root}, "
                     f"{args.workers} workers): {len(train_ds)} train / "
                     f"{len(test_ds)} test samples")

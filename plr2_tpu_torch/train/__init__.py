@@ -1,7 +1,7 @@
 """Training: the curriculum `Trainer` (per-sample accumulation), the
-`FusedTrainer` (windows on a shared canvas), the single-device
-`BatchTrainer` (mean gradient, batch BN; mixed precision through
-`ModelConfig.dtype`) and `CheckpointManager`."""
+`FusedTrainer` (windows on a shared canvas), `BatchTrainer` (mean
+gradient, batch BN; mixed precision through `ModelConfig.dtype`; on one
+device or over a process-group mesh) and `CheckpointManager`."""
 
 from plr2_tpu_torch.train.batch_trainer import BatchTrainer
 from plr2_tpu_torch.train.checkpoint import CheckpointManager

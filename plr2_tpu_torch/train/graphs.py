@@ -39,7 +39,6 @@ import torch
 
 from plr2_tpu_torch.losses.add_loss import loss_branch
 from plr2_tpu_torch.models.resnet import batchnorm_buffers
-from plr2_tpu_torch.parallel.data_parallel import count_symmetric
 from plr2_tpu_torch.utils.cuda_graphs import (capture, clone, copy_into,
                                               weights_key)
 
@@ -137,7 +136,7 @@ class GradientGraphs:
         ids, `mixed` where it carries none; a window runs `mixed` per
         sample."""
         inputs = step.inputs(batch, generator, window)
-        n_sym = None if window else count_symmetric(batch, step.sym_list)
+        n_sym = None if window else step.count_symmetric(batch)
         branch = "window" if window else loss_branch(
             inputs["idx"].shape[0], n_sym, step.refine_stage, step.sym_list,
             step.sym_slots)

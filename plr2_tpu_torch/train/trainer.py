@@ -35,8 +35,8 @@ runs ADD or ADD-S alone, as JAX's `lax.switch` does at batch 1.
 threads (`data/prefetch.py`; real-data decode overlaps the device), as
 JAX's trainer does, but without its quiet fallback to the inline path: a
 native library that does not build stops the run with the compiler's
-output. Unsupported settings raise NotImplementedError: `data_parallel >
-1` and `model_parallel > 1` (the mesh, ROADMAP A7). `sym_slots` sizes
+output. The mesh (`data_parallel > 1`, `model_parallel > 1`) runs in
+`BatchTrainer`; the per-sample trainers refuse it. `sym_slots` sizes
 `BatchTrainer`'s ADD-S compaction, as in JAX.
 
 `FusedTrainer` and `BatchTrainer` run their gradient programs as CUDA
@@ -87,12 +87,13 @@ def sample_batch(s: Sample) -> Dict:
     return b
 
 
-def require_supported(config: PipelineConfig) -> None:
-    """Raise NotImplementedError for settings this port does not run."""
+def require_single_device(config: PipelineConfig) -> None:
+    """Raise ValueError for a mesh: the per-sample trainers run on one
+    device (the mesh trainer is `BatchTrainer`, as in JAX's CLI)."""
     if config.data_parallel > 1 or config.model_parallel > 1:
-        raise NotImplementedError(
-            "data_parallel / model_parallel > 1 (the mesh trainers) are not "
-            "ported: ROADMAP A7")
+        raise ValueError("data_parallel / model_parallel > 1 run in "
+                         "BatchTrainer (--batched); Trainer and FusedTrainer "
+                         "run on one device")
 
 
 @dataclasses.dataclass
@@ -108,12 +109,15 @@ class TrainState:
 
 
 class Trainer:
+    runs_on_mesh = False  # BatchTrainer runs data / model parallelism
+
     def __init__(self, config: PipelineConfig,
                  pipe: Optional[DenseFusionPipeline] = None, device="cuda"):
         """Builds the pipeline (seeded from `TrainConfig.seed`, on `device`;
         `ModelConfig.dtype = "bfloat16"` is mixed precision) unless `pipe`
         is given."""
-        require_supported(config)
+        if not self.runs_on_mesh:
+            require_single_device(config)
         self.cfg = config
         dtype = (torch.bfloat16 if config.model.dtype in ("bfloat16", "bf16")
                  else torch.float32)
@@ -128,6 +132,7 @@ class Trainer:
         self._stop_fn = None
         # the CUDA graphs of FusedTrainer / BatchTrainer (GradientGraphs)
         self.graphs = None
+        self.mesh = None  # BatchTrainer's process-group mesh
 
     def drop_graphs(self) -> None:
         """Release the captured gradient programs (a curriculum switch, a
@@ -155,7 +160,12 @@ class Trainer:
         """The current stage's step over the state's optimizer."""
         return TrainStep(self.pipe, self.sym_list, state.w,
                          refine_iterations=self._iterations(state),
-                         optimizer=state.optimizer)
+                         optimizer=state.optimizer, mesh=self.mesh)
+
+    def restore_into(self, ckpt, state: TrainState, tag: str = "best"):
+        """Resume `state` from the checkpoint `tag` of `ckpt` (a
+        `CheckpointManager`)."""
+        return ckpt.restore_into(state, tag)
 
     def bn_snapshot(self) -> List[torch.Tensor]:
         return [b.clone() for b in batchnorm_buffers(self.pipe.posenet)]

@@ -162,7 +162,9 @@ def test_initial_pose_first_index_wins_ties():
 
 def test_import_hygiene_no_jax_no_reference_package():
     """The port (every module of it, the eval modules, CLIs, the
-    real-data loaders and the segmentation slice included) and chip_smoke.py import neither jax nor
+    real-data loaders, the segmentation slice and the parallel layer
+    included), chip_smoke.py and the mesh tests' rank programs
+    (tests/torch_parallel_ranks.py) import neither jax nor
     flax nor any plr2_tpu module, nor PIL or PyYAML (the card's host has
     neither),
     read no .msgpack checkpoint, and leave matplotlib unimported (the card's
@@ -172,6 +174,8 @@ def test_import_hygiene_no_jax_no_reference_package():
         "for m in ('jax', 'flax', 'plr2_tpu', 'PIL', 'yaml'):\n"
         "    sys.modules[m] = None\n"
         "import importlib, pkgutil, plr2_tpu_torch, chip_smoke\n"
+        "sys.path.insert(0, 'tests')\n"
+        "import torch_parallel_ranks\n"
         "for m in pkgutil.walk_packages(plr2_tpu_torch.__path__, 'plr2_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -185,7 +189,10 @@ def test_import_hygiene_no_jax_no_reference_package():
         "          'data.posecnn', 'data.prefetch', 'models.segnet',\n"
         "          'train.seg_trainer', 'eval.segment', 'eval.full_pipeline',\n"
         "          'tools.train_segmentation', 'tools.segment_linemod',\n"
-        "          'tools.eval_ycb', 'tools.journey_config5'):\n"
+        "          'tools.eval_ycb', 'tools.journey_config5',\n"
+        "          'parallel.mesh', 'parallel.tensor_parallel',\n"
+        "          'parallel.point_parallel', 'parallel.pipeline_parallel',\n"
+        "          'parallel.launch'):\n"
         "    assert 'plr2_tpu_torch.' + m in sys.modules, m\n"
         "assert 'matplotlib' not in sys.modules\n"
         "print('ok')\n")

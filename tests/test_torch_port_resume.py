@@ -235,9 +235,11 @@ def test_batch_trainer_pads_the_tail_batch_by_cycling(tiny):
 
 
 def test_trainers_refuse_what_the_port_does_not_run():
+    # the mesh runs in BatchTrainer (tests/test_torch_port_parallel*.py);
+    # the per-sample trainers run on one device
     for cfg in (dataclasses.replace(tiny_config(), data_parallel=2),
                 dataclasses.replace(tiny_config(), model_parallel=2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP A"):
+        with pytest.raises(ValueError, match="run in BatchTrainer"):
             Trainer(cfg, device="cpu")
     # sym_slots and workers (the native data plane) are accepted
     Trainer(tiny_config(sym_slots=4), pipe=DenseFusionPipeline(8, 2, device="cpu"))
@@ -286,10 +288,13 @@ def test_cli_writes_best_and_last_then_resumes_from_last(tmp_path):
          "model_parallel", "pretrained_trunk"])
 def test_cli_refuses_unsupported_flags(flags, tmp_path):
     """Flags that wait for another item raise NotImplementedError naming
-    it; --synthetic beside --dataset_root, or neither, exits (pick one)."""
+    it; --synthetic beside --dataset_root, or neither, exits (pick one); a
+    mesh of 2 ranks outside torchrun exits naming it."""
     base = [] if flags == [] else ["--synthetic"]
     if flags == [] or flags[0] == "--dataset_root":
         exc, match = SystemExit, "--dataset_root DIR .* or --synthetic: pick one"
+    elif flags[0] in ("--data_parallel", "--model_parallel"):
+        exc, match = SystemExit, "world size is 1: run under torchrun"
     else:
         exc, match = NotImplementedError, "not ported: .*ROADMAP A"
     with pytest.raises(exc, match=match):

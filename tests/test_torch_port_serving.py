@@ -34,6 +34,7 @@ from plr2_tpu_torch import serving
 from plr2_tpu_torch.data import bbox as t_bbox
 from plr2_tpu_torch.data import preprocess as t_pre
 from plr2_tpu_torch.data.loader import raw_to_sample, stack_samples
+from plr2_tpu_torch.parallel.mesh import Axis, Mesh
 from plr2_tpu_torch.serving import FrameEstimator, frame_key_words
 from plr2_tpu_torch.tools import serve
 from plr2_tpu_torch.utils.cuda_graphs import Graph
@@ -440,8 +441,10 @@ def test_refusals():
     pipe = _small_pipe()
     with pytest.raises(ValueError, match="seg_scale"):
         FrameEstimator(pipe, seg_scale=0)
-    with pytest.raises(NotImplementedError, match="A7"):
-        FrameEstimator(pipe, mesh=object())
+    no_data = Mesh(("model",), (1,), 0, {"model": Axis("model", [0], 0, None)},
+                   "gloo")
+    with pytest.raises(ValueError, match="no 'data' axis"):
+        FrameEstimator(pipe, mesh=no_data)
     with pytest.raises(ValueError, match="canvas"):
         FrameEstimator(pipe, canvas=280, img_h=240, img_w=320)
     fe = FrameEstimator(pipe, canvas=40, img_h=48, img_w=48)
