@@ -215,7 +215,7 @@ non-zero, and there is no CPU fallback:
    --seg_scale 2 at once, then segment_linemod on phase 21's LineMOD tree
    and eval_linemod --segnet_results on its masks.
 
-23. parallel (last): the parallel layer (plr2_tpu_torch/parallel/) at the
+23. parallel: the parallel layer (plr2_tpu_torch/parallel/) at the
    train cell's width (batch 32, 160 px, 1000 points, 21 objects, 2 refine
    iterations). (a) One rank over NCCL: the graphed data-parallel
    BatchTrainer step (its BatchNorm, gradient and metric collectives
@@ -245,6 +245,31 @@ non-zero, and there is no CPU fallback:
    plus 5e-2), sp_match over 2 ranks bit-equal to nn_match, the pipelined
    estimate with pipe = 2; every rank's launches of kernels 1, 2, 4 and
    the gather.
+
+24. tail (last): the last modules of the port and their tools.
+   `tools.soak_run --mode fused` starts first as a process (one SIGTERM
+   after epoch 2, the auto-resume, a 4-epoch horizon on 16 frames; its
+   summary checked at the end) and shares the card with the untimed work
+   that follows. Every kernel of the tools' path against its plain
+   version at their shapes (the decoder on the 240 px canvas at batch 8
+   and 32, f32 and bf16; the heads at 500 points and 4 objects; the ADD-S
+   match of 32 symmetric samples of 500 x 256 queries). A YAML written by
+   `config_io.save_config`
+   (the linemod_train preset, 2 epochs) reads back equal; a torchvision-
+   layout resnet18 state dict built from a seed loads into a Trainer's
+   pipeline on the card (90 tensors imported, 32 skipped, each imported
+   tensor equal to the source, the stem at its init); `tools.train
+   --config --synthetic --pretrained_trunk` runs as a process;
+   `tools.export_torch` splits its `best` into the reference's two .pth
+   files and `load_reference_checkpoint` reloads them into a fresh
+   pipeline: its f32 estimate bit-equal to the checkpoint's. Then, in
+   this process, a shortened `tools.train_synthetic_e2e` (200 steps at
+   batch 32, an evaluation every 100; its FINAL line); once the soak run
+   has ended, `tools.overfit_synthetic` at batch 8 for 100 steps in f32
+   and with --bf16 (the last dis below the first; samples/s) and
+   `utils.debug.checked` around an f32 stage-1 step (the loss bit-equal
+   to the unchecked step's; an injected NaN raises). The launches of the
+   in-process runs go into the kernels line as "tail".
 
 The second-to-last line is a JSON object with one entry per kernel and
 dtype; the last line is {"ok": true, "device": {...}}.
@@ -553,9 +578,9 @@ def stage_inputs(name, dtype, gen, batch=None):
     return x, wk, bias, alpha
 
 
-def head_inputs(tag, dtype, gen, batch=None):
-    rows = (batch or BATCH) * NUM_POINTS
-    widths = HEAD_WIDTHS + (NUM_OBJ * HEAD_OUT[tag],)
+def head_inputs(tag, dtype, gen, batch=None, points=NUM_POINTS, objects=NUM_OBJ):
+    rows = (batch or BATCH) * points
+    widths = HEAD_WIDTHS + (objects * HEAD_OUT[tag],)
     x = _rand((rows, widths[0]), gen, 1.0, dtype)
     params = [(_rand((o, i), gen, i ** -0.5, dtype), _rand((o,), gen, 0.1, dtype))
               for i, o in zip(widths[:-1], widths[1:])]
@@ -1359,12 +1384,14 @@ def bn_state(net):
             if "running" in k or "num_batches" in k}
 
 
-def check_kernels_at(shapes, errs, gen, dt_name="f32", batch=1, match=True):
+def check_kernels_at(shapes, errs, gen, dt_name="f32", batch=1, match=True,
+                     points=NUM_POINTS, objects=NUM_OBJ, mesh=MESH_POINTS):
     """Each kernel of a training path against its plain version at the
     shapes that path gives it: the three decoder stages of every (h, w)
     crop or canvas in `shapes` (non-square ones too), the heads at `batch`
-    samples' rows, and (with `match`) the ADD-S match of one symmetric
-    sample."""
+    samples' rows (`points` a sample, `objects` classes), and (with
+    `match`) the ADD-S match of `match` symmetric samples (True: one) of
+    `points` x `mesh` queries against `mesh` targets."""
     from plr2_tpu_torch.ops import knn, mlp_head, upconv
     dtype = torch.float32 if dt_name == "f32" else torch.bfloat16
     for h, w in sorted(set(shapes)):
@@ -1382,20 +1409,21 @@ def check_kernels_at(shapes, errs, gen, dt_name="f32", batch=1, match=True):
                 errs[("upconv3x3_prelu", dt_name)], e)
             del args, got
     for tag in HEAD_OUT:
-        x, params = head_inputs(tag, dtype, gen, batch=batch)
+        x, params = head_inputs(tag, dtype, gen, batch=batch, points=points,
+                                objects=objects)
         got = mlp_head.mlp_head(x, params)
         torch.cuda.synchronize()
         e = compare(f"mlp_head {tag} {dt_name} {tuple(x.shape)}", got,
                     mlp_head.mlp_head_plain(x, params), TOL[dt_name])
         errs[("mlp_head", dt_name)] = max(errs[("mlp_head", dt_name)], e)
     if match:
-        q = _rand((1, NUM_POINTS * MESH_POINTS, 3), gen, 0.05)
-        t = _rand((1, MESH_POINTS, 3), gen, 0.05)
+        q = _rand((int(match), points * mesh, 3), gen, 0.05)
+        t = _rand((int(match), mesh, 3), gen, 0.05)
         got, ref = knn.nn_match(q, t), knn.nn_match_plain(q, t)
         torch.cuda.synchronize()
         if not torch.equal(got, ref):
             raise AssertionError("nn_match at one sample's shape differs from its twin")
-        print(f"  nn_match one symmetric sample q {tuple(q.shape)} t "
+        print(f"  nn_match {int(match)} symmetric sample(s) q {tuple(q.shape)} t "
               f"{tuple(t.shape)}: equal to its twin ok")
     torch.cuda.empty_cache()
 
@@ -5017,9 +5045,9 @@ def parallel_phase():
     return launches, timings
 
 
-def add_parallel_launches(entries, launches):
-    """The parallel phase's launches (per dtype; the dtype-free kernels
-    summed) into the kernels line as "parallel"."""
+def add_path_launches(entries, launches, path):
+    """A phase's launches (per dtype; the dtype-free kernels summed) into
+    the kernels line under `path`."""
     for e in entries:
         kname, _, dt_name = e["name"].rpartition("_")
         if kname in SOURCES and dt_name in launches:
@@ -5028,8 +5056,330 @@ def add_parallel_launches(entries, launches):
             n = sum(launches[d].get(e["name"], 0) for d in launches)
         else:
             continue
-        e["launches_by_path"]["parallel"] = n
+        e["launches_by_path"][path] = n
         e["launches"] += n
+
+
+# ---------------- the tail: YAML configs, trunk import, .pth export, tools (phase 24) ----
+
+# the tools' widths: tools/overfit_synthetic.py and train_synthetic_e2e.py
+# (500 points, 4 objects, 256-point meshes, 240 px canvas), and the
+# linemod_train preset of the --config run (500 points, 13 objects)
+TAIL_POINTS, TAIL_OBJ, TAIL_MESH, TAIL_CANVAS = 500, 4, 256, 240
+TAIL_SEED = 17
+# a torchvision resnet18's partial load into the deep-stem trunk: 18
+# convs and their 18 BatchNorms x 4 tensors imported, 32 keys skipped
+# (tests/test_torch_port_tail.py TRUNK_COUNTS)
+TRUNK_COUNTS = (90, 32)
+OVERFIT_STEPS, E2E_STEPS, E2E_EVERY, E2E_BATCH = 100, 200, 100, 32
+
+
+def fake_torchvision_resnet18(seed):
+    """torchvision.models.resnet18's state-dict layout, values from `seed`
+    (the fabricated state dict of tests/test_torchvision_import.py)."""
+    rng = np.random.default_rng(seed)
+    sd = {}
+
+    def add(name, shape):
+        sd[name] = torch.tensor(rng.standard_normal(shape).astype(np.float32) * 0.1)
+
+    def add_bn(prefix, ch):
+        add(f"{prefix}.weight", (ch,))
+        add(f"{prefix}.bias", (ch,))
+        add(f"{prefix}.running_mean", (ch,))
+        sd[f"{prefix}.running_var"] = torch.tensor(
+            rng.uniform(0.5, 1.5, (ch,)).astype(np.float32))
+        sd[f"{prefix}.num_batches_tracked"] = torch.tensor(0)
+
+    add("conv1.weight", (64, 3, 7, 7))
+    add_bn("bn1", 64)
+    for li, (inp, planes) in {1: (64, 64), 2: (64, 128), 3: (128, 256),
+                              4: (256, 512)}.items():
+        for bi in range(2):
+            p, cin = f"layer{li}.{bi}", inp if bi == 0 else planes
+            add(f"{p}.conv1.weight", (planes, cin, 3, 3))
+            add_bn(f"{p}.bn1", planes)
+            add(f"{p}.conv2.weight", (planes, planes, 3, 3))
+            add_bn(f"{p}.bn2", planes)
+            if bi == 0 and li > 1:
+                add(f"{p}.downsample.0.weight", (planes, cin, 1, 1))
+                add_bn(f"{p}.downsample.1", planes)
+    add("fc.weight", (1000, 512))
+    add("fc.bias", (1000,))
+    return sd
+
+
+def tail_cli(name, args, walls, timeout=300):
+    """`python -m plr2_tpu_torch.tools.<name>` on the card; its wall time
+    into `walls`. Returns stdout + stderr."""
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", f"plr2_tpu_torch.tools.{name}", *args],
+                         cwd=ROOT, capture_output=True, text=True, timeout=timeout)
+    walls[f"{name}_wall_s"] = time.perf_counter() - t0
+    out = res.stdout + res.stderr
+    if res.returncode != 0:
+        raise AssertionError(f"{name} CLI failed (rc {res.returncode}): {out[-3000:]}")
+    return out
+
+
+def tail_config_run(tmp, timings):
+    """save_config -> load_config equal; the trunk import into the trainer's
+    pipeline on the card (tensors, stem, counts); `tools.train --config
+    --synthetic --pretrained_trunk` as a process; export_torch on its best
+    and load_reference_checkpoint into a fresh pipeline: a bit-equal f32
+    estimate. Returns the launches of the in-process estimates."""
+    import dataclasses
+    from plr2_tpu_torch import ops
+    from plr2_tpu_torch.config import get_preset
+    from plr2_tpu_torch.config_io import load_config, save_config
+    from plr2_tpu_torch.models.torch_import import (load_pretrained_trunk,
+                                                    load_reference_checkpoint)
+    from plr2_tpu_torch.pipeline import DenseFusionPipeline
+    from plr2_tpu_torch.tools import export_torch
+    from plr2_tpu_torch.train import CheckpointManager, Trainer
+    cfg = get_preset("linemod_train")
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, nepoch=2))
+    yml, pth = tmp / "linemod_train.yml", tmp / "resnet18.pth"
+    save_config(cfg, str(yml))
+    if load_config(str(yml)) != cfg:
+        raise AssertionError("tail: save_config -> load_config changed the config")
+    sd = fake_torchvision_resnet18(TAIL_SEED)
+    torch.save(sd, pth)
+    trainer = Trainer(cfg, device=DEVICE)
+    init_stem = trainer.pipe.posenet.cnn.model.feats.conv1.weight.clone()
+    imported, skipped = load_pretrained_trunk(str(pth), trainer.pipe)
+    own = trainer.pipe.posenet.cnn.model.feats.state_dict()
+    bad = [k for k in imported if not torch.equal(own[k].cpu(), sd[k])]
+    if (len(imported), len(skipped)) != TRUNK_COUNTS or bad or not torch.equal(
+            own["conv1.weight"], init_stem):
+        raise AssertionError(f"tail: trunk import {len(imported)} / {len(skipped)} "
+                             f"(expected {TRUNK_COUNTS}), differing {bad[:5]}")
+    print(f"  trunk import on the card: {len(imported)} imported, {len(skipped)} "
+          f"skipped; imported tensors equal the source, the stem kept its init ok")
+    del trainer, own
+    out = tail_cli("train", ["--config", str(yml), "--synthetic", "--pretrained_trunk",
+                             str(pth), "--outf", str(tmp / "out"), "--log_dir",
+                             str(tmp / "logs")], timings)
+    want = (f"{TRUNK_COUNTS[0]} tensors imported, {TRUNK_COUNTS[1]} without a "
+            "deep-stem counterpart kept at init")
+    if want not in out or "epoch 2:" not in out:
+        raise AssertionError(f"tail: train --config run: {out[-2000:]}")
+    for line in out.splitlines():
+        if "pretrained trunk" in line or line.startswith("epoch "):
+            print(f"  train: {line}")
+    ckpt_dir = tmp / "out" / "linemod"
+    paths = export_torch.main(["--checkpoint", str(ckpt_dir), "--out_dir",
+                               str(tmp / "exported"), "--reference_names"])
+    payload = CheckpointManager(str(ckpt_dir)).restore("best")
+    ref = DenseFusionPipeline(cfg.model.num_points, cfg.model.num_objects, seed=1)
+    ref.posenet.load_state_dict(payload["posenet"])
+    ref.refiner.load_state_dict(payload["refiner"])
+    pipe = load_reference_checkpoint(paths[0], DenseFusionPipeline(
+        cfg.model.num_points, cfg.model.num_objects, seed=2), paths[1])
+    gen = torch.Generator().manual_seed(TAIL_SEED)
+    inputs = (_rand((BATCH, CROP, CROP, 3), gen),
+              _rand((BATCH, cfg.model.num_points, 3), gen, 0.1),
+              torch.randint(0, CROP * CROP, (BATCH, cfg.model.num_points),
+                            generator=gen).to(DEVICE),
+              (torch.arange(BATCH) % cfg.model.num_objects).to(DEVICE))
+    ops.reset_launch_counts()
+    want_est, got_est = ref.estimate(*inputs), pipe.estimate(*inputs)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    if not all(torch.equal(a, b) for a, b in zip(got_est, want_est)):
+        raise AssertionError("tail: the exported and reloaded pipeline's estimate differs")
+    print(f"  export_torch {[Path(x).name for x in paths]} -> load_reference_checkpoint: "
+          f"f32 estimate (batch {BATCH}, {cfg.model.num_points} points) bit-equal ok")
+    return launches
+
+
+def tail_overfit(timings):
+    """overfit_synthetic at batch 8, f32 and --bf16: the final dis below
+    the first. Returns the launches by dtype."""
+    from plr2_tpu_torch import ops
+    from plr2_tpu_torch.tools import overfit_synthetic
+    launches = {}
+    for dt_name, flag in (("f32", []), ("bf16", ["--bf16"])):
+        ops.reset_launch_counts()
+        out = overfit_synthetic.main(["--steps", str(OVERFIT_STEPS), "--batch",
+                                      str(BATCH), *flag])
+        torch.cuda.synchronize()
+        launches[dt_name] = ops.launch_counts()
+        (_, _, first), (_, _, last) = out["history"][0], out["history"][-1]
+        timings[f"overfit_{dt_name}_samples_per_s"] = out["samples_per_s"]
+        timings[f"overfit_{dt_name}_dis_first"] = first
+        timings[f"overfit_{dt_name}_dis_last"] = last
+        ok = math.isfinite(last) and last < first
+        print(f"  overfit_synthetic {dt_name}: dis {first:.5f} -> {last:.5f} over "
+              f"{OVERFIT_STEPS} steps at batch {BATCH}, {out['samples_per_s']:.1f} "
+              f"samples/s {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"tail: overfit {dt_name} dis did not fall")
+    return launches
+
+
+def tail_e2e(tmp, timings):
+    """train_synthetic_e2e shortened: its FINAL line. Returns the launches."""
+    import contextlib
+    import io
+    from plr2_tpu_torch import ops
+    from plr2_tpu_torch.tools import train_synthetic_e2e
+    ops.reset_launch_counts()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        res = train_synthetic_e2e.main(["--steps", str(E2E_STEPS), "--batch",
+                                        str(E2E_BATCH), "--eval_every",
+                                        str(E2E_EVERY), "--outf", str(tmp / "e2e")])
+    torch.cuda.synchronize()
+    # the soak run's processes share the card meanwhile
+    timings["e2e_short_wall_s"] = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    for line in buf.getvalue().splitlines():
+        print(f"  e2e: {line}")
+    if not (math.isfinite(res.auc) and res.num_samples > 0):
+        raise AssertionError(f"tail: e2e evaluation {res}")
+    timings["e2e_short_auc"], timings["e2e_short_under_2cm"] = res.auc, res.under_2cm
+    return launches
+
+
+def tail_soak_start(tmp):
+    """Start `tools.soak_run --mode fused` (one SIGTERM after epoch 2, a
+    4-epoch horizon, 16 frames) as the leader of a new process group, its
+    output into a file. Returns (process, output file, start time)."""
+    out = open(tmp / "soak_run.out", "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "plr2_tpu_torch.tools.soak_run", "--mode", "fused",
+         "--nepoch", "4", "--kill_epochs", "2", "--synthetic_frames", "16",
+         "--poll_s", "0.2", "--leg_timeout", "240", "--outf", str(tmp / "soak"),
+         "--log_dir", str(tmp / "soak_logs")],
+        cwd=ROOT, stdout=out, stderr=subprocess.STDOUT, start_new_session=True)
+    return proc, out, time.perf_counter()
+
+
+def tail_soak_stop(started):
+    """Kill the soak run and the trainer it launched (its process group)."""
+    proc, out, _ = started
+    if proc.poll() is None:
+        os.killpg(proc.pid, 9)
+        proc.wait()
+    out.close()
+
+
+def tail_soak_finish(tmp, started, timings):
+    """Wait for the soak run; check its exit and its summary."""
+    proc, out, t0 = started
+    try:
+        rc = proc.wait(timeout=600)
+    finally:
+        tail_soak_stop(started)
+    timings["soak_run_wall_s"] = time.perf_counter() - t0
+    text = (tmp / "soak_run.out").read_text()
+    if rc != 0:
+        raise AssertionError(f"tail: soak_run exited {rc}: {text[-3000:]}")
+    summary = json.loads((tmp / "soak" / "soak_summary.json").read_text())
+    leg0, leg1 = summary["legs"]
+    ok = (summary["kill_epochs"] == [2] and leg0["graceful_stop"]
+          and leg1["resumed_from"] is not None and leg1["epochs_logged"][1] >= 4)
+    print(f"  soak_run: {text.strip().splitlines()[-1]}")
+    print(f"  soak legs: {[{k: l[k] for k in ('kill_epoch', 'seconds', 'resumed_from', 'epochs_logged', 'graceful_stop')} for l in summary['legs']]} "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"tail: soak summary {summary}")
+    timings["soak_leg0_s"], timings["soak_leg1_s"] = leg0["seconds"], leg1["seconds"]
+
+
+def tail_checked(timings):
+    """`checked` around an f32 stage-1 step at the overfit width: the loss
+    bit-equal to the unchecked step's from the same state, and an injected
+    NaN raises. Returns the launches."""
+    from plr2_tpu_torch import ops
+    from plr2_tpu_torch.data import SyntheticPoseDataset, draw, raw_to_sample, stack_samples
+    from plr2_tpu_torch.parallel import make_train_step
+    from plr2_tpu_torch.pipeline import DenseFusionPipeline
+    from plr2_tpu_torch.utils.debug import checked
+    ds = SyntheticPoseDataset(num_frames=BATCH // 2, num_objects=2,
+                              model_points=TAIL_MESH, num_points=TAIL_POINTS, seed=3)
+    g = torch.Generator().manual_seed(TAIL_SEED)
+    bs = stack_samples([raw_to_sample(ds.get_raw(i), draw(g), TAIL_POINTS,
+                                      add_noise=True, device=DEVICE)
+                        for i in range(len(ds))], crop=TAIL_CANVAS)
+    batch = {k: getattr(bs, k) for k in ("img", "points", "choose", "target",
+                                         "model_points", "idx", "obj")}
+    ops.reset_launch_counts()
+    out = {}
+    for name, wrap in (("plain", lambda f: f), ("checked", checked)):
+        pipe = DenseFusionPipeline(TAIL_POINTS, TAIL_OBJ, seed=4)
+        step = make_train_step(pipe, sym_list=(0, 1), w=W, lr=LR)
+        t0 = time.perf_counter()
+        m = wrap(step)(batch, torch.Generator().manual_seed(5))
+        torch.cuda.synchronize()
+        out[name] = (m["loss"].clone(), m["dis"].clone(), time.perf_counter() - t0)
+    launches = ops.launch_counts()
+    same = all(torch.equal(a, b) for a, b in zip(out["plain"][:2], out["checked"][:2]))
+    bad = dict(batch, points=batch["points"].clone())
+    bad["points"][0, 0, 0] = float("nan")
+    try:
+        checked(step)(bad, torch.Generator().manual_seed(5))
+        raised = ""
+    except FloatingPointError as e:
+        raised = str(e)
+    print(f"  checked stage-1 step (batch {len(ds)}, sym): loss {float(out['checked'][0]):.6f} "
+          f"bit-equal to the unchecked step's {'ok' if same else 'FAIL'}; "
+          f"{out['checked'][2] * 1e3:.1f} ms checked, {out['plain'][2] * 1e3:.1f} ms not "
+          f"(first step of each); injected NaN: {raised or 'no error: FAIL'}")
+    if not same or not raised:
+        raise AssertionError("tail: checked step")
+    timings["checked_step_ms"], timings["unchecked_step_ms"] = (
+        out["checked"][2] * 1e3, out["plain"][2] * 1e3)
+    return launches
+
+
+@phase("tail")
+def tail_phase(errs):
+    """The tail on the card: YAML configs, the trunk import, the .pth
+    export and reload, the overfit, synthetic end-to-end and soak tools,
+    `checked`; every kernel of the tools' path against its plain version
+    at their shapes. The soak run's processes share the card with the
+    untimed work (the kernel checks, the --config run, the e2e run); the
+    overfit runs and the checked step, whose times are printed, run after
+    it. Returns (launches by dtype, timings)."""
+    import tempfile
+    timings = {}
+    launches = {"f32": {}, "bf16": {}}
+
+    def add(dt_name, seen):
+        launches[dt_name] = {k: launches[dt_name].get(k, 0) + v for k, v in seen.items()}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        soak = tail_soak_start(tmp)
+        try:
+            gen = torch.Generator().manual_seed(TAIL_SEED)
+            for dt_name, batch in (("f32", BATCH), ("bf16", BATCH), ("f32", E2E_BATCH)):
+                check_kernels_at([(TAIL_CANVAS, TAIL_CANVAS)], errs, gen, dt_name,
+                                 batch, match=False, points=TAIL_POINTS,
+                                 objects=TAIL_OBJ)
+            # the e2e batch's ADD-S match: every sample symmetric
+            check_kernels_at([], errs, gen, "f32", match=E2E_BATCH, points=TAIL_POINTS,
+                             objects=TAIL_OBJ, mesh=TAIL_MESH)
+            add("f32", tail_config_run(tmp, timings))
+            add("f32", tail_e2e(tmp, timings))
+            tail_soak_finish(tmp, soak, timings)
+        finally:
+            tail_soak_stop(soak)
+        torch.cuda.empty_cache()
+        for dt_name, seen in tail_overfit(timings).items():
+            add(dt_name, seen)
+        add("f32", tail_checked(timings))
+    total = {k: launches["f32"][k] + launches["bf16"].get(k, 0) for k in launches["f32"]}
+    print(f"  tail launches (in-process runs): f32 {launches['f32']}, bf16 "
+          f"{launches['bf16']}")
+    missing = [k for k in ("mlp_head", "upconv3x3_prelu", "nn_match",
+                           "gather_rows_backward") if total.get(k, 0) == 0]
+    if missing or not all(launches["bf16"].get(k, 0) for k in ("mlp_head", "upconv3x3_prelu")):
+        raise AssertionError(f"tail: kernels never launched on the path: {missing}")
+    return launches, timings
 
 
 def main():
@@ -5084,7 +5434,10 @@ def main():
     add_seg_launches(entries, seg_launches, seg_table)
     torch.cuda.empty_cache()
     par_launches, par = parallel_phase()
-    add_parallel_launches(entries, par_launches)
+    add_path_launches(entries, par_launches, "parallel")
+    torch.cuda.empty_cache()
+    tail_launches, tail = tail_phase(errs)
+    add_path_launches(entries, tail_launches, "tail")
     for e in entries:  # the decoder's error now covers the segmenter's shapes
         kname, _, dt_name = e["name"].rpartition("_")
         if kname == "upconv3x3_prelu":
@@ -5105,6 +5458,7 @@ def main():
           f"real data {json.dumps({k: round(v, 4) for k, v in real.items()})}, "
           f"segmentation {json.dumps({k: round(v, 4) for k, v in seg.items()})}, "
           f"parallel {json.dumps({k: round(v, 4) for k, v in par.items()})}, "
+          f"tail {json.dumps({k: round(v, 4) for k, v in tail.items()})}, "
           f"estimate profiles {json.dumps({d: {k: round(v, 3) for k, v in p.items()} for d, p in est_profile.items()})}")
     print(smi)
     print(json.dumps({"kernels": entries}))

@@ -26,11 +26,22 @@ at its key's indent), flow sequences and mappings (which may span lines),
 plain, single- and double-quoted scalars, comments and one leading
 ``---``. Anchors, aliases, tags, block scalars, complex keys, directives,
 timestamps, sexagesimal numbers and several documents raise ValueError.
+
+`dump_yaml(obj)` / `write_yaml(path, obj)` write what ``yaml.safe_dump(obj,
+sort_keys=False)`` writes for nested mappings whose leaves are ints,
+floats, booleans, None, strings and lists or tuples of those (block
+style, a sequence at its key's indent, empty ones as ``[]`` / ``{}``; a
+container inside a sequence raises TypeError), so that `read_yaml` and
+PyYAML read back the same values: floats with a dot in the mantissa and a signed
+exponent (``1.0e-05``, ``.inf``, ``.nan``), ``true`` / ``false`` /
+``null``, and a string quoted wherever YAML 1.1 would resolve it plain to
+something else (``''``, ``'1.0'``, ``'yes'``, ``'null'``).
 """
 
 from __future__ import annotations
 
 import json
+import math
 import re
 import struct
 import zlib
@@ -476,3 +487,79 @@ def read_yaml(path) -> Any:
         return parse_yaml(Path(path).read_text())
     except _YamlError as e:
         raise ValueError(f"YAML {str(path)!r}: {e}") from None
+
+
+# a string written plain only when it has none of YAML's indicators and
+# resolves back to itself (`_plain_ok`)
+_PLAIN_SAFE_RE = re.compile(r"^[A-Za-z0-9_./][A-Za-z0-9_./+ -]*$")
+
+
+def _plain_ok(s: str) -> bool:
+    if not _PLAIN_SAFE_RE.match(s) or s.endswith(" ") or "  " in s:
+        return False
+    try:
+        return _resolve_plain(s) == s
+    except _YamlError:
+        return False
+
+
+def _dump_scalar(v: Any) -> str:
+    if v is None:
+        return "null"
+    if isinstance(v, bool):
+        return "true" if v else "false"
+    if isinstance(v, int):
+        return str(v)
+    if isinstance(v, float):
+        if math.isnan(v):
+            return ".nan"
+        if math.isinf(v):
+            return ".inf" if v > 0 else "-.inf"
+        r = repr(v)
+        if "e" in r:  # YAML 1.1 floats need a dot and a signed exponent
+            mant, exp = r.split("e")
+            return f"{mant if '.' in mant else mant + '.0'}e{exp}"
+        return r
+    if isinstance(v, str):
+        if _plain_ok(v):
+            return v
+        if v.isprintable() and v.isascii():
+            return "'" + v.replace("'", "''") + "'"
+        return json.dumps(v)
+    raise TypeError(f"YAML: cannot write {type(v).__name__} {v!r}")
+
+
+def _dump_node(obj: Any, indent: int, out: List[str]) -> None:
+    pad = " " * indent
+    if isinstance(obj, dict):
+        for k, v in obj.items():
+            key = _dump_scalar(k)
+            if isinstance(v, (dict, list, tuple)) and len(v):
+                out.append(f"{pad}{key}:")
+                # a sequence sits at its key's indent, as PyYAML writes it
+                _dump_node(v, indent + 2 if isinstance(v, dict) else indent, out)
+            else:
+                out.append(f"{pad}{key}: {_dump_value(v)}")
+        return
+    out.extend(f"{pad}- {_dump_scalar(v)}" for v in obj)
+
+
+def _dump_value(v: Any) -> str:
+    if isinstance(v, dict):
+        return "{}"
+    if isinstance(v, (list, tuple)):
+        return "[]"
+    return _dump_scalar(v)
+
+
+def dump_yaml(obj: Any) -> str:
+    """`obj` as the YAML text of the module docstring's writer."""
+    if isinstance(obj, (dict, list, tuple)) and len(obj):
+        out: List[str] = []
+        _dump_node(obj, 0, out)
+        return "\n".join(out) + "\n"
+    return _dump_value(obj) + "\n"
+
+
+def write_yaml(path, obj: Any) -> None:
+    Path(path).write_text(dump_yaml(obj))

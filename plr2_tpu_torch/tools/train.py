@@ -3,6 +3,8 @@ surface) over this package's trainers:
 
   python -m plr2_tpu_torch.tools.train --synthetic --nepoch 2          # card
   python -m plr2_tpu_torch.tools.train --synthetic --nepoch 2 --cpu    # CPU
+  python -m plr2_tpu_torch.tools.train --config configs/linemod.yml \
+      --synthetic --pretrained_trunk resnet18.pth          # YAML + trunk
   python -m plr2_tpu_torch.tools.train --dataset linemod \
       --dataset_root /data/Linemod_preprocessed --workers 4 --cache_mb 2048
   python -m plr2_tpu_torch.tools.train --dataset ycb \
@@ -25,12 +27,22 @@ default device; without CUDA it raises unless --cpu is given.
 caches decoded frames (`data/frame_cache.py`), and `--noise_trans` sets
 `DatasetConfig.noise_trans`, the translation noise that both sample
 iterators draw (JAX stores it on the datasets, where no path reads it,
-and draws 0.03). Flags of the JAX CLI that this port does not run raise
-NotImplementedError with the ROADMAP item that brings them: --config
-(YAML), --pretrained_trunk. On the card --fused runs each accumulation
-window, and --batched each step's forward and backward, as one CUDA
-graph; --sym_slots sizes --batched mode's ADD-S compaction, as in the JAX
-CLI.
+and draws 0.03). On the card --fused runs each accumulation window, and
+--batched each step's forward and backward, as one CUDA graph;
+--sym_slots sizes --batched mode's ADD-S compaction, as in the JAX CLI.
+
+`--config FILE` (`config_io.load_config`, no PyYAML) is authoritative as
+in the JAX CLI (tools/train.py): its `dataset.name` and `dataset.root`
+replace --dataset and --dataset_root (the root unless --synthetic), its
+`train` section (nepoch included) replaces the train flags, and its
+`data_parallel` / `model_parallel` above 1 and `train.fused_accum` choose
+the trainer as the flags would; --num_points / --mesh_points still
+override its sizes, --synthetic still selects synthetic frames, and
+--outf / --log_dir still place the checkpoints and logs. `--pretrained_trunk FILE` loads a
+torchvision resnet18 .pth into PoseNet's trunk
+(`models/torch_import.load_pretrained_trunk`: the stem and layer1 block
+0's first conv keep their init) before any resume, and logs the imported
+and skipped counts.
 
 --data_parallel D / --model_parallel M with D x M > 1 run `BatchTrainer`
 over a (data, model) mesh of D x M ranks, one process a rank under
@@ -50,7 +62,8 @@ import os
 def parse_args(argv=None):
     p = argparse.ArgumentParser(prog="python -m plr2_tpu_torch.tools.train")
     p.add_argument("--config", type=str, default="",
-                   help="YAML experiment config (not ported: raises)")
+                   help="YAML experiment config (configs/*.yml); "
+                        "authoritative over the train flags")
     p.add_argument("--dataset", choices=["ycb", "linemod"], default="linemod")
     p.add_argument("--dataset_root", type=str, default="",
                    help="LineMOD (Linemod_preprocessed) or YCB-Video root")
@@ -69,7 +82,8 @@ def parse_args(argv=None):
     p.add_argument("--nepoch", type=int, default=500)
     p.add_argument("--repeat_epoch", type=int, default=1)
     p.add_argument("--pretrained_trunk", type=str, default="",
-                   help="torchvision resnet18 .pth (not ported: raises)")
+                   help="torchvision resnet18 .pth: partial pretrained load "
+                        "of PoseNet's trunk")
     p.add_argument("--resume_posenet", type=str, default="")
     p.add_argument("--resume_refinenet", type=str, default="")
     p.add_argument("--start_epoch", type=int, default=1)
@@ -110,16 +124,12 @@ def parse_args(argv=None):
 
 
 def refuse_unsupported(args) -> None:
-    """NotImplementedError for every flag the port does not run."""
-    refused = [
-        (args.config, "--config (YAML) needs config_io.py, which needs "
-                      "PyYAML: ROADMAP A8"),
-        (args.pretrained_trunk, "--pretrained_trunk (torch_import.py): "
-                                "ROADMAP A8"),
-    ]
-    for bad, what in refused:
-        if bad:
-            raise NotImplementedError(f"not ported: {what}")
+    """SystemExit for a choice of data or trainer that does not hold
+    together; FileNotFoundError for a --pretrained_trunk that is not
+    there (before anything is built or written)."""
+    if args.pretrained_trunk and not os.path.isfile(args.pretrained_trunk):
+        raise FileNotFoundError(f"--pretrained_trunk {args.pretrained_trunk!r}: "
+                                "no such file")
     if args.synthetic == bool(args.dataset_root):
         raise SystemExit("give --dataset_root DIR (a LineMOD or YCB-Video "
                          "tree) or --synthetic: pick one")
@@ -135,7 +145,40 @@ def batched_mode(args) -> bool:
     return bool(args.batched or args.data_parallel or args.model_parallel > 1)
 
 
-def build_config(args):
+def apply_config(args):
+    """The --config file's config (None without one), after moving its
+    dataset, epoch count and trainer choice onto `args` (the JAX CLI's
+    --config semantics, module docstring)."""
+    if not args.config:
+        return None
+    from plr2_tpu_torch.config_io import load_config
+    cfg = load_config(args.config)
+    if cfg.dataset.name in ("ycb", "linemod"):
+        args.dataset = cfg.dataset.name
+    if cfg.dataset.root and not args.synthetic:
+        args.dataset_root = cfg.dataset.root
+    args.nepoch = cfg.train.nepoch
+    if not args.data_parallel and cfg.data_parallel > 1:
+        args.data_parallel = cfg.data_parallel
+    if not args.model_parallel and cfg.model_parallel > 1:
+        args.model_parallel = cfg.model_parallel
+    args.fused = args.fused or cfg.train.fused_accum
+    return cfg
+
+
+def build_config(args, cfg=None):
+    """The run's config: the --config file's `cfg` as it is, or the preset
+    of --dataset with the train flags; then the mesh and size flags."""
+    if cfg is None:
+        cfg = preset_config(args)
+    if args.data_parallel:
+        cfg = dataclasses.replace(cfg, data_parallel=args.data_parallel)
+    if args.model_parallel:
+        cfg = dataclasses.replace(cfg, model_parallel=args.model_parallel)
+    return with_sizes(cfg, args.num_points, args.mesh_points)
+
+
+def preset_config(args):
     from plr2_tpu_torch.config import TrainConfig, get_preset
     cfg = get_preset("linemod_train" if args.dataset == "linemod"
                      else "ycb_train")
@@ -150,13 +193,8 @@ def build_config(args):
         start_epoch=args.start_epoch, workers=args.workers,
         sym_slots=args.sym_slots, fused_accum=args.fused,
         batched_test=args.batched_test))
-    cfg = dataclasses.replace(cfg, dataset=dataclasses.replace(
+    return dataclasses.replace(cfg, dataset=dataclasses.replace(
         cfg.dataset, root=args.dataset_root, noise_trans=args.noise_trans))
-    if args.data_parallel:
-        cfg = dataclasses.replace(cfg, data_parallel=args.data_parallel)
-    if args.model_parallel:
-        cfg = dataclasses.replace(cfg, model_parallel=args.model_parallel)
-    return with_sizes(cfg, args.num_points, args.mesh_points)
 
 
 def build_datasets(args, cfg):
@@ -224,34 +262,42 @@ def join_mesh(args):
 
 def main(argv=None):
     args = parse_args(argv)
+    config = apply_config(args)
     refuse_unsupported(args)
     device, rank = join_mesh(args)
     try:
-        return train(args, device, rank)
+        return train(args, device, rank, config)
     finally:
         import torch.distributed as dist
         if dist.is_initialized():
             dist.destroy_process_group()
 
 
-def train(args, device, rank: int):
+def train(args, device, rank: int, config=None):
     from plr2_tpu_torch.train import (BatchTrainer, CheckpointManager,
                                       FusedTrainer, Trainer)
     from plr2_tpu_torch.utils import GracefulInterrupt, setup_logger
 
-    cfg = build_config(args)
+    cfg = build_config(args, config)
     train_ds, test_ds = build_datasets(args, cfg)
     logger = setup_logger(
         "train", os.path.join(args.log_dir, f"train_{args.dataset}.log"))
     if rank:
         logger.disabled = True  # rank 0 logs for the mesh
     kind = (BatchTrainer if batched_mode(args)
-            else FusedTrainer if cfg.train.fused_accum else Trainer)
+            else FusedTrainer if args.fused else Trainer)
     # the first SIGTERM / SIGINT latches from here on; fit stops at the
     # next sample boundary and saves `last` (auto-resume replays the epoch)
     with GracefulInterrupt() as stop:
         trainer = kind(cfg, device=device)
         state = trainer.init_state()
+        if args.pretrained_trunk:
+            from plr2_tpu_torch.models.torch_import import load_pretrained_trunk
+            imported, skipped = load_pretrained_trunk(args.pretrained_trunk,
+                                                      trainer.pipe)
+            logger.info(f"pretrained trunk {args.pretrained_trunk}: "
+                        f"{len(imported)} tensors imported, {len(skipped)} "
+                        f"without a deep-stem counterpart kept at init")
         ckpt = CheckpointManager(os.path.join(args.outf, args.dataset))
         if args.resume_posenet or args.resume_refinenet:
             state = trainer.restore_into(ckpt, state,

@@ -162,8 +162,8 @@ def test_initial_pose_first_index_wins_ties():
 
 def test_import_hygiene_no_jax_no_reference_package():
     """The port (every module of it, the eval modules, CLIs, the
-    real-data loaders, the segmentation slice and the parallel layer
-    included), chip_smoke.py and the mesh tests' rank programs
+    real-data loaders, the segmentation slice, the parallel layer and the
+    tail included), chip_smoke.py and the mesh tests' rank programs
     (tests/torch_parallel_ranks.py) import neither jax nor
     flax nor any plr2_tpu module, nor PIL or PyYAML (the card's host has
     neither),
@@ -192,7 +192,10 @@ def test_import_hygiene_no_jax_no_reference_package():
         "          'tools.eval_ycb', 'tools.journey_config5',\n"
         "          'parallel.mesh', 'parallel.tensor_parallel',\n"
         "          'parallel.point_parallel', 'parallel.pipeline_parallel',\n"
-        "          'parallel.launch'):\n"
+        "          'parallel.launch', 'config_io', 'models.torch_import',\n"
+        "          'models.torch_export', 'utils.debug', 'tools.export_torch',\n"
+        "          'tools.overfit_synthetic', 'tools.train_synthetic_e2e',\n"
+        "          'tools.soak_run'):\n"
         "    assert 'plr2_tpu_torch.' + m in sys.modules, m\n"
         "assert 'matplotlib' not in sys.modules\n"
         "print('ok')\n")

@@ -4,8 +4,10 @@ train run): `CheckpointManager` save -> restore_into is exact, tags are
 independent, a stop mid-window rolls the BatchNorm statistics back and
 saves `last`, BatchTrainer stops at a batch boundary, and
 `python -m plr2_tpu_torch.tools.train --synthetic --cpu` writes `best` and
-`last`, resumes from `last` and refuses every flag the port does not run
-(the real-data flags run in tests/test_torch_port_real_cli.py).
+`last`, resumes from `last` and refuses flags that do not hold together
+or name no file (the real-data flags run in
+tests/test_torch_port_real_cli.py, --config and --pretrained_trunk in
+tests/test_torch_port_tail_cli.py).
 """
 
 import dataclasses
@@ -287,16 +289,17 @@ def test_cli_writes_best_and_last_then_resumes_from_last(tmp_path):
     ids=["config", "dataset_root", "no_synthetic", "data_parallel",
          "model_parallel", "pretrained_trunk"])
 def test_cli_refuses_unsupported_flags(flags, tmp_path):
-    """Flags that wait for another item raise NotImplementedError naming
-    it; --synthetic beside --dataset_root, or neither, exits (pick one); a
-    mesh of 2 ranks outside torchrun exits naming it."""
+    """--synthetic beside --dataset_root, or neither, exits (pick one); a
+    mesh of 2 ranks outside torchrun exits naming it; a --config or a
+    --pretrained_trunk file that is not there raises FileNotFoundError
+    (their runs: tests/test_torch_port_tail_cli.py)."""
     base = [] if flags == [] else ["--synthetic"]
     if flags == [] or flags[0] == "--dataset_root":
         exc, match = SystemExit, "--dataset_root DIR .* or --synthetic: pick one"
     elif flags[0] in ("--data_parallel", "--model_parallel"):
         exc, match = SystemExit, "world size is 1: run under torchrun"
     else:
-        exc, match = NotImplementedError, "not ported: .*ROADMAP A"
+        exc, match = FileNotFoundError, "x.yml|r18.pth"
     with pytest.raises(exc, match=match):
         cli.main(base + ["--cpu", "--outf", str(tmp_path), *flags])
     assert not os.listdir(tmp_path)
