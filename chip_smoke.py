@@ -1988,25 +1988,24 @@ def train_graphs_phase(tkern, batch, trainer_out, fused_out, mixed_out):
                                       make_fused_window_grads)
     from plr2_tpu_torch.train.graphs import GradientGraphs
     from plr2_tpu_torch.train.trainer import sample_batch
-    from plr2_tpu_torch.utils import Timer
     out = {}
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
 
     # -- the host-time split of one eager per-sample stage-1 step --
     ds = trainer_out["train_ds"]
     stage1 = trainer_out["stage1"]
-    timer = Timer()
     it = stage1._sample_iter(ds, torch.Generator().manual_seed(15), add_noise=True,
                              shuffle=False, seed=0)
     samples = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     for _ in range(WINDOW):
+        samples.append(next(it))
         torch.cuda.synchronize()
-        with timer.section("data path"):
-            samples.append(next(it))
-            torch.cuda.synchronize()
-    data_ms = timer.totals["data path"] * 1e3 / WINDOW
+    data_s = time.perf_counter() - t0
+    data_ms = data_s * 1e3 / WINDOW
     print(f"  data path (get_raw -> raw_to_sample -> preprocess_crop, synchronised), "
-          f"{WINDOW} samples: {timer.summary()}")
+          f"{WINDOW} samples: {data_s:.3f}s total, {data_ms:.2f} ms/call")
     step = stage1.stage_step(trainer_out["stage1_state"])
     b, gen = sample_batch(samples[0]), torch.Generator().manual_seed(16)
     step.accumulate(b, gen)

@@ -66,6 +66,7 @@ from plr2_tpu_torch.models.remat import rematerialised
 from plr2_tpu_torch.models.resnet import synced_statistics
 from plr2_tpu_torch.parallel.mesh import shard_batch
 from plr2_tpu_torch.pipeline import PoseEstimate, full_f32
+from plr2_tpu_torch.utils.profiling import span
 
 BATCH_KEYS = ("img", "points", "choose", "target", "model_points", "idx")
 
@@ -184,11 +185,15 @@ class TrainStep:
     def inputs(self, batch: Mapping, generator: Optional[torch.Generator] = None,
                window: bool = False) -> Dict:
         """`program`'s inputs: the batch (or window) on the pipeline's
-        device and its dropout masks (`dropout_masks`), moved there."""
-        b = self._batch(batch)
+        device and its dropout masks (`dropout_masks`), moved there. The
+        spans `plr2.train.copy` hold the moves: a copy from pageable host
+        memory first waits for the work queued before it on the device."""
+        with span("plr2.train.copy"):
+            b = self._batch(batch)
         masks = self.dropout_masks(b["idx"].shape[0], generator, window)
-        b["masks"] = None if masks is None else tuple(
-            None if m is None else m.to(self.pipe.device) for m in masks)
+        with span("plr2.train.copy"):
+            b["masks"] = None if masks is None else tuple(
+                None if m is None else m.to(self.pipe.device) for m in masks)
         if self.mesh is not None:
             if window:
                 raise ValueError("a window of per-sample steps does not run "
@@ -262,10 +267,14 @@ class TrainStep:
                    generator: torch.Generator = None):
         """Forward and backward of `batch`: its gradients are ADDED into
         the network's `.grad` (no optimizer step). Returns (loss, dis),
-        0-d tensors, not synchronised."""
-        b = self.inputs(batch, generator)
-        return self._backward(b, b["masks"], self.count_symmetric(batch),
-                              self.sym_slots)
+        0-d tensors, not synchronised. Spans: `plr2.train.inputs` (the
+        batch and masks to the device, the symmetric count) and
+        `plr2.train.eager` (the forward and backward)."""
+        with span("plr2.train.inputs"):
+            b = self.inputs(batch, generator)
+            n_sym = self.count_symmetric(batch)
+        with span("plr2.train.eager"):
+            return self._backward(b, b["masks"], n_sym, self.sym_slots)
 
     def program(self, inputs: Mapping, n_sym: Optional[int] = None,
                 window: bool = False):
@@ -292,16 +301,24 @@ class TrainStep:
         return torch.stack(losses), torch.stack(dists)
 
     def apply(self) -> None:
-        """One optimizer step on the accumulated gradients, then clear them."""
-        self.optimizer.step()
-        self.optimizer.zero_grad(set_to_none=True)
+        """One optimizer step on the accumulated gradients, then clear them
+        (the span `plr2.train.adam`)."""
+        with span("plr2.train.adam"):
+            self.optimizer.step()
+            self.optimizer.zero_grad(set_to_none=True)
 
     def __call__(self, batch: Mapping,
                  generator: torch.Generator = None) -> Dict[str, torch.Tensor]:
-        self.optimizer.zero_grad(set_to_none=True)
-        loss, dis = self.accumulate(batch, generator)
-        self.optimizer.step()
-        return {"loss": loss, "dis": dis}
+        """zero_grad, `accumulate`, one optimizer step: the span
+        `plr2.train.step`, its `plr2.train.adam` children around the
+        clearing and the step."""
+        with span("plr2.train.step"):
+            with span("plr2.train.adam"):
+                self.optimizer.zero_grad(set_to_none=True)
+            loss, dis = self.accumulate(batch, generator)
+            with span("plr2.train.adam"):
+                self.optimizer.step()
+            return {"loss": loss, "dis": dis}
 
 
 def make_train_step(pipe, sym_list: Sequence[int], w: float,

@@ -71,6 +71,7 @@ from plr2_tpu_torch.pipeline import DenseFusionPipeline, full_f32
 from plr2_tpu_torch.utils.cuda_graphs import capture as _capture
 from plr2_tpu_torch.utils.cuda_graphs import clone as _clone
 from plr2_tpu_torch.utils.cuda_graphs import weights_key
+from plr2_tpu_torch.utils.profiling import span
 
 
 class FramePoses(NamedTuple):
@@ -114,6 +115,16 @@ class FrameEstimator:
         replay it (True), or run the program eagerly (False).
     mesh: a mesh whose `data` axis splits `run_frames`' frames (module
         docstring).
+
+    Counters: `captures` (graphs captured) and `replays` (graph replays).
+    After warm-up `captures` stands still; a rising count means a knob
+    set is captured again call after call. Spans (`utils/profiling.py`,
+    recorded while a profiler records): `plr2.serve.call` around each
+    call, with `plr2.serve.inputs` (host arrays to device tensors),
+    `plr2.serve.capture` (a graph miss), `plr2.serve.replay` (the static
+    input copies and the replay) or `plr2.serve.eager` (the program run
+    eagerly) and `plr2.serve.outputs` (the copy of the graph's outputs;
+    the gather over a mesh).
     """
 
     def __init__(self, pipe: DenseFusionPipeline, *, canvas: int = 240,
@@ -137,6 +148,8 @@ class FrameEstimator:
         self.graphs = graphs and pipe.device.type == "cuda"
         self._graphs = {}
         self._weights = None
+        self.captures = 0
+        self.replays = 0
 
     # -- F frames x K slots: mask -> bbox -> canvas crop -> preprocessing --
 
@@ -263,7 +276,8 @@ class FrameEstimator:
 
     def _dispatch(self, with_samples, args):
         if not self.graphs:
-            return self._program(with_samples, *args)
+            with span("plr2.serve.eager"):
+                return self._program(with_samples, *args)
         weights = weights_key(self.pipe)
         if self.seg_model is not None:
             weights += (next(self.seg_model.parameters()).data_ptr(),)
@@ -272,15 +286,21 @@ class FrameEstimator:
             self._weights = weights
         key = self._knobs(with_samples, args)
         entry = self._graphs.get(key)
-        if entry is None:
-            entry = self._graphs[key] = _capture(
-                lambda *a: self._program(with_samples, *a), args)
-        else:
-            for static, a in zip(entry.inputs, args):
-                if a is not None:
-                    static.copy_(a)
-        entry.graph.replay()
-        return _clone(entry.outputs)
+        fresh = entry is None
+        if fresh:
+            with span("plr2.serve.capture"):
+                entry = self._graphs[key] = _capture(
+                    lambda *a: self._program(with_samples, *a), args)
+            self.captures += 1
+        with span("plr2.serve.replay"):
+            if not fresh:
+                for static, a in zip(entry.inputs, args):
+                    if a is not None:
+                        static.copy_(a)
+            entry.graph.replay()
+        self.replays += 1
+        with span("plr2.serve.outputs"):
+            return _clone(entry.outputs)
 
     def _inputs(self, colors, depths, labels, obj_ids, model_points, intr,
                 keys, key_words, target_r, target_t):
@@ -316,17 +336,20 @@ class FrameEstimator:
     def _single(self, with_samples, color, depth, label, obj_ids,
                 model_points, intr_vec, key, seg_variables, target_r,
                 target_t, key_words):
-        self._load_seg(seg_variables)
-        args = self._inputs(color, depth, label, obj_ids, model_points,
-                            intr_vec, key, key_words, target_r, target_t)
-        # one frame is the F = 1 case of the frame-batch program
-        args = tuple(None if a is None else a[None] for a in args)
-        out = self._dispatch(with_samples, args)
-        if not with_samples:
-            return FramePoses(*(x[0] for x in out))
-        poses, samples = out
-        return (FramePoses(*(x[0] for x in poses)),
-                Sample(*(x[0] for x in samples)))
+        with span("plr2.serve.call"):
+            self._load_seg(seg_variables)
+            with span("plr2.serve.inputs"):
+                args = self._inputs(color, depth, label, obj_ids,
+                                    model_points, intr_vec, key, key_words,
+                                    target_r, target_t)
+                # one frame is the F = 1 case of the frame-batch program
+                args = tuple(None if a is None else a[None] for a in args)
+            out = self._dispatch(with_samples, args)
+            if not with_samples:
+                return FramePoses(*(x[0] for x in out))
+            poses, samples = out
+            return (FramePoses(*(x[0] for x in poses)),
+                    Sample(*(x[0] for x in samples)))
 
     # -- public surface --
 
@@ -367,12 +390,18 @@ class FrameEstimator:
         with (F, K, ...) fields. The F*K crops share one PoseNet batch and
         the F frames one segmenter batch. Over a mesh each rank runs its
         block of the frames and every rank gets the poses of all F."""
-        self._load_seg(seg_variables)
-        args = self._inputs(colors, depths, labels, obj_ids, model_points,
-                            intr_vecs, keys, key_words, target_r, target_t)
-        if self.data_axis is None:
-            return self._dispatch(False, args)
-        rows = self.data_axis.block(args[3].shape[0], "run_frames' frames")
-        poses = self._dispatch(False, tuple(
-            a if a is None or a.dim() == 0 else a[rows] for a in args))
-        return FramePoses(*(self.data_axis.gather_rows(x) for x in poses))
+        with span("plr2.serve.call"):
+            self._load_seg(seg_variables)
+            with span("plr2.serve.inputs"):
+                args = self._inputs(colors, depths, labels, obj_ids,
+                                    model_points, intr_vecs, keys, key_words,
+                                    target_r, target_t)
+            if self.data_axis is None:
+                return self._dispatch(False, args)
+            rows = self.data_axis.block(args[3].shape[0],
+                                        "run_frames' frames")
+            poses = self._dispatch(False, tuple(
+                a if a is None or a.dim() == 0 else a[rows] for a in args))
+            with span("plr2.serve.outputs"):
+                return FramePoses(*(self.data_axis.gather_rows(x)
+                                    for x in poses))

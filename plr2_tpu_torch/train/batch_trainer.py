@@ -55,6 +55,7 @@ from plr2_tpu_torch.parallel.mesh import make_mesh, shard_batch
 from plr2_tpu_torch.parallel.tensor_parallel import gathered, shard_pipeline
 from plr2_tpu_torch.train.graphs import GradientGraphs
 from plr2_tpu_torch.train.trainer import Trainer, TrainState, child_generator
+from plr2_tpu_torch.utils.profiling import span
 
 
 class BatchTrainer(Trainer):
@@ -105,11 +106,15 @@ class BatchTrainer(Trainer):
         return step
 
     def _step(self, step: TrainStep, batch, generator):
+        """One optimizer step; the span `plr2.train.step` around it (opened
+        by `TrainStep.__call__` on the eager path)."""
         if self.graphs is None:
             return step(batch, generator)
-        loss, dis = self.graphs.gradients(step, batch, generator)
-        step.optimizer.step()
-        return {"loss": loss, "dis": dis}
+        with span("plr2.train.step"):
+            loss, dis = self.graphs.gradients(step, batch, generator)
+            with span("plr2.train.adam"):
+                step.optimizer.step()
+            return {"loss": loss, "dis": dis}
 
     def _batches(self, dataset, generator, seed: int):
         """Stacked fixed-canvas batches; the tail is cycle-padded (every

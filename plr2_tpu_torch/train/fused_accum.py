@@ -34,6 +34,7 @@ import torch
 
 from plr2_tpu_torch.parallel.data_parallel import TrainStep, adam, window_sample
 from plr2_tpu_torch.train.graphs import GradientGraphs
+from plr2_tpu_torch.utils.profiling import span
 
 
 def make_fused_window_grads(pipe, sym_list: Sequence[int], w: float,
@@ -82,18 +83,22 @@ def make_fused_accum_step(pipe, sym_list: Sequence[int], w: float,
     `lr` over the stage's network). With `refine_iterations > 0` this is
     the refine stage (PoseNet frozen in eval mode, the refiner trained).
     The per-sample loop clears the gradients after the step; the graph
-    keeps its gradient tensors, which its next replay zeroes."""
+    keeps its gradient tensors, which its next replay zeroes. Spans:
+    `plr2.train.step` around the call, `plr2.train.adam` around the
+    optimizer step (and the clearing)."""
     grads = make_fused_window_grads(pipe, sym_list, w, refine_iterations,
                                     graphs)
     if optimizer is None:
         optimizer = adam(grads.network, lr)
 
     def step(window: Mapping, generator: Optional[torch.Generator] = None):
-        losses, dists = grads(window, generator)
-        optimizer.step()
-        if grads.graphs is None:
-            optimizer.zero_grad(set_to_none=True)
-        return {"loss": losses, "dis": dists}
+        with span("plr2.train.step"):
+            losses, dists = grads(window, generator)
+            with span("plr2.train.adam"):
+                optimizer.step()
+                if grads.graphs is None:
+                    optimizer.zero_grad(set_to_none=True)
+            return {"loss": losses, "dis": dists}
 
     step.optimizer = optimizer
     return step

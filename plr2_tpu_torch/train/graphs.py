@@ -25,6 +25,13 @@ those gradients in place and adds the batch's into them. The optimizer
 step stays eager after the replay, reading `.grad` as it would after an
 eager step.
 
+Counters: `captures` and `replays`; after warm-up `captures` stands
+still. Spans (`utils/profiling.py`, recorded while a profiler records),
+inside the caller's `plr2.train.step`: `plr2.train.inputs` (the batch and
+its dropout masks to the device, the ADD-S branch), `plr2.train.capture`
+(a graph miss), `plr2.train.replay` (the input copies, the `.grad`
+binding and the replay) and `plr2.train.outputs` (the outputs' copy).
+
 A graph holds the parameters' storage, so the graphs are dropped when it
 changes (`DenseFusionPipeline.cast`); the trainers drop them at a
 curriculum switch and at the start of `fit` (a resume). A capture or a
@@ -41,6 +48,7 @@ from plr2_tpu_torch.losses.add_loss import loss_branch
 from plr2_tpu_torch.models.resnet import batchnorm_buffers
 from plr2_tpu_torch.utils.cuda_graphs import (capture, clone, copy_into,
                                               weights_key)
+from plr2_tpu_torch.utils.profiling import span
 
 
 class _Entry(NamedTuple):
@@ -64,6 +72,7 @@ class GradientGraphs:
 
     def __init__(self):
         self.captures = 0  # graphs captured so far (a count for callers)
+        self.replays = 0
         self._entries: Dict[Any, _Entry] = {}
         self._weights = None
         self._pool = None  # the shared memory pool (the first graph's)
@@ -96,14 +105,20 @@ class GradientGraphs:
             self._weights = weights
         key = (key, _signature(inputs))
         entry = self._entries.get(key)
-        if entry is None:
-            entry = self._entries[key] = self._capture(step, program, inputs)
-        else:
-            copy_into(entry.graph.inputs[0], inputs)
-        for p, g in entry.grads:
-            p.grad = g
-        entry.graph.graph.replay()
-        return clone(entry.graph.outputs)
+        fresh = entry is None
+        if fresh:
+            with span("plr2.train.capture"):
+                entry = self._entries[key] = self._capture(step, program,
+                                                           inputs)
+        with span("plr2.train.replay"):
+            if not fresh:
+                copy_into(entry.graph.inputs[0], inputs)
+            for p, g in entry.grads:
+                p.grad = g
+            entry.graph.graph.replay()
+        self.replays += 1
+        with span("plr2.train.outputs"):
+            return clone(entry.graph.outputs)
 
     def _capture(self, step, program: Callable, inputs: Mapping) -> _Entry:
         params = list(step.network.parameters())
@@ -135,11 +150,12 @@ class GradientGraphs:
         the ADD-S branch (part of the key) from the batch's host object
         ids, `mixed` where it carries none; a window runs `mixed` per
         sample."""
-        inputs = step.inputs(batch, generator, window)
-        n_sym = None if window else step.count_symmetric(batch)
-        branch = "window" if window else loss_branch(
-            inputs["idx"].shape[0], n_sym, step.refine_stage, step.sym_list,
-            step.sym_slots)
+        with span("plr2.train.inputs"):
+            inputs = step.inputs(batch, generator, window)
+            n_sym = None if window else step.count_symmetric(batch)
+            branch = "window" if window else loss_branch(
+                inputs["idx"].shape[0], n_sym, step.refine_stage,
+                step.sym_list, step.sym_slots)
         key = (step.refine_iterations, step.w, step.sym_slots, branch)
         return self.run(key, step,
                         lambda inp: step.program(inp, n_sym, window), inputs)
