@@ -297,6 +297,14 @@ BATCH, BATCH_BIG = 8, 128
 # PSP decoder stages at 160 px: (h, w, Cin, Cout) of the low-res input
 STAGES = {"up_1": (20, 20, 1024, 256), "up_2": (40, 40, 256, 64),
           "up_3": (80, 80, 64, 64)}
+# the f32 stages at one crop (batch 1) by crop size: 160 px (a per-sample
+# training forward) and 240 px (one crop served), whose grids the f32 plan
+# splits over clusters (ops/upconv.py `f32_plan`)
+ONE_CROP_STAGES = {160: STAGES,
+                   240: {"up_1": (30, 30, 1024, 256), "up_2": (60, 60, 256, 64),
+                         "up_3": (120, 120, 64, 64)}}
+# stage launches a CUDA graph replays when one-crop stages are timed
+ONE_CROP_REPS = 50
 HEAD_WIDTHS = (1408, 640, 256, 128)
 HEAD_OUT = {"r": 4, "t": 3, "c": 1}
 
@@ -456,6 +464,13 @@ BACKWARD_FUNCTIONS = ("_MLPHeadBackward", "_UpConvBackward")
 def counts(**launched):
     """The launch counts a path should show: `launched`, every other kernel 0."""
     return {name: launched.get(name, 0) for name in KERNEL_NAMES}
+
+
+def launch_counts():
+    """`ops.launch_counts()` by kernel: without `upconv3x3_prelu.split`, a
+    part of `upconv3x3_prelu`'s launches that the kernels phase checks."""
+    from plr2_tpu_torch import ops
+    return {k: v for k, v in ops.launch_counts().items() if k in KERNEL_NAMES}
 
 
 def phase(name):
@@ -659,7 +674,90 @@ def kernels_phase():
                         got, upconv.upconv3x3_prelu_plain(*args), TOL[dt_name])
             errs[("upconv3x3_prelu", dt_name)] = max(
                 errs[("upconv3x3_prelu", dt_name)], e)
+    one_crop_stages(errs, gen)
+    one_crop_forwards()
     return errs
+
+
+def one_crop_forwards():
+    """Split launches of one f32 estimate after a warm-up: 2 at batch 1 on
+    a 240 px crop (up_1, up_2), 3 at batch 1 on 160 px, 0 at batch 32."""
+    from plr2_tpu_torch import DenseFusionPipeline, ops
+    pipe = DenseFusionPipeline(NUM_POINTS, NUM_OBJ, device=DEVICE, seed=0)
+    g = torch.Generator().manual_seed(6)
+    for batch, crop, want in ((1, 240, 2), (1, 160, 3), (32, 160, 0)):
+        inputs = [t.to(DEVICE) for t in (
+            torch.randn((batch, crop, crop, 3), generator=g),
+            torch.randn((batch, NUM_POINTS, 3), generator=g) * 0.1,
+            torch.randint(0, crop * crop, (batch, NUM_POINTS), generator=g),
+            torch.arange(batch) % NUM_OBJ)]
+        pipe.estimate(*inputs)
+        ops.reset_launch_counts()
+        pipe.estimate(*inputs)
+        torch.cuda.synchronize()
+        seen = ops.launch_counts()
+        split, stages = seen["upconv3x3_prelu.split"], seen["upconv3x3_prelu"]
+        print(f"  f32 estimate at batch {batch} on {crop} px: {split} of {stages} "
+              f"decoder launches split (expected {want} of 3)")
+        if (split, stages) != (want, 3):
+            raise AssertionError(f"split launches at batch {batch}, {crop} px: "
+                                 f"{split} of {stages}, expected {want} of 3")
+    del pipe
+
+
+def graph_ms(fn, reps):
+    """Device ms of one fn() from a CUDA graph of `reps` calls: the
+    launches without the host's time between them."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    return time_ms(graph.replay, 5) / reps
+
+
+def one_crop_stages(errs, gen):
+    """The f32 stages at batch 1: each against its plain version; the plan
+    it took from the card's slots; where it splits, two launches
+    bit-equal; its device time against its FFMA bound."""
+    from plr2_tpu_torch.ops import upconv
+    slots = upconv.card_slots(torch.device(DEVICE))
+    print(f"  f32 blocks the card holds at once, by split: {slots}")
+    before, split_stages = upconv.split_launches, 0
+    for crop, stages in ONE_CROP_STAGES.items():
+        for name, (h, w, cin, cout) in stages.items():
+            args = (_rand((1, h, w, cin), gen),
+                    _rand((3, 3, cin, cout), gen, (9 * cin) ** -0.5),
+                    _rand((cout,), gen, 0.1), torch.full((1,), 0.25, device=DEVICE))
+            tile, split = upconv.f32_plan(1, h, w, cin, cout, slots)
+            got, again = upconv.upconv3x3_prelu(*args), upconv.upconv3x3_prelu(*args)
+            torch.cuda.synchronize()
+            split_stages += split > 1
+            e = compare(f"upconv3x3_prelu f32 one crop {crop} px {name} "
+                        f"{tuple(args[0].shape)} (tile {upconv.F32_TILES[tile]}, "
+                        f"split {split})", got, upconv.upconv3x3_prelu_plain(*args),
+                        TOL["f32"])
+            errs[("upconv3x3_prelu", "f32")] = max(errs[("upconv3x3_prelu", "f32")], e)
+            same = torch.equal(got, again)
+            ms = graph_ms(lambda: upconv.upconv3x3_prelu_forward(*args), ONE_CROP_REPS)
+            bound = upconv.flops(1, h, w, cin, cout) / PEAK_FLOPS["f32"] * 1e3
+            print(f"    {ms:.4f} ms against a bound of {bound:.4f} ms "
+                  f"({100 * bound / ms:.1f}%); a second launch bit-equal: {same}")
+            if split > 1 and not same:
+                raise AssertionError(f"the split stage {name} at {crop} px does "
+                                     f"not repeat bit for bit")
+            del args, got, again
+    # a split stage's two checked launches, and its timed graph's warm-up
+    # and captured launches
+    seen = upconv.split_launches - before
+    want = split_stages * (2 + 1 + ONE_CROP_REPS)
+    print(f"  upconv.split_launches: {seen} (expected {want})")
+    if seen != want:
+        raise AssertionError(f"split launches: {seen}, expected {want}")
 
 
 def knn_inputs(gen, m2, queries=None):
@@ -907,7 +1005,7 @@ def run_step(step, batch, seed):
 @phase("train")
 def train_phase():
     from plr2_tpu_torch import DenseFusionPipeline
-    from plr2_tpu_torch.ops import launch_counts, reset_launch_counts
+    from plr2_tpu_torch.ops import reset_launch_counts
     from plr2_tpu_torch.parallel import make_train_step
     kern = DenseFusionPipeline(NUM_POINTS, NUM_OBJ, device=DEVICE, seed=0)
     plain = DenseFusionPipeline(NUM_POINTS, NUM_OBJ, use_kernels=False,
@@ -1003,7 +1101,7 @@ def check_pose(dt_name, est):
 @phase("main path")
 def main_path_phase():
     from plr2_tpu_torch import DenseFusionPipeline
-    from plr2_tpu_torch.ops import launch_counts, reset_launch_counts
+    from plr2_tpu_torch.ops import reset_launch_counts
     kern = DenseFusionPipeline(NUM_POINTS, NUM_OBJ, device=DEVICE, seed=0)
     plain = DenseFusionPipeline(NUM_POINTS, NUM_OBJ, use_kernels=False,
                                 device=DEVICE, seed=0)
@@ -1436,7 +1534,7 @@ def trainer_phase(errs):
     kernels and through the plain versions from one state and seed."""
     import tempfile
     from plr2_tpu_torch import DenseFusionPipeline
-    from plr2_tpu_torch.ops import launch_counts, reset_launch_counts
+    from plr2_tpu_torch.ops import reset_launch_counts
     from plr2_tpu_torch.train import CheckpointManager, Trainer
     train_ds, test_ds = scene_dataset(TRAIN_FRAMES, 0), scene_dataset(TEST_FRAMES, 1)
     n_tr, n_te = len(train_ds), len(test_ds)
@@ -1569,7 +1667,7 @@ def trainer_phase(errs):
 def fused_phase(train_ds, errs):
     """One FusedTrainer epoch (window WINDOW, f32), then a window on its
     shared canvas against WINDOW per-sample steps of the same samples."""
-    from plr2_tpu_torch.ops import launch_counts, reset_launch_counts
+    from plr2_tpu_torch.ops import reset_launch_counts
     from plr2_tpu_torch.parallel import TrainStep
     from plr2_tpu_torch.parallel.data_parallel import BATCH_KEYS
     from plr2_tpu_torch.train import FusedTrainer, make_fused_window_grads
@@ -1648,7 +1746,7 @@ def mixed_phase(errs):
     versions and in f32, from one state and seed."""
     import numpy as np
     from plr2_tpu_torch import DenseFusionPipeline
-    from plr2_tpu_torch.ops import launch_counts, mlp_head, reset_launch_counts, upconv
+    from plr2_tpu_torch.ops import mlp_head, reset_launch_counts, upconv
     from plr2_tpu_torch.train import BatchTrainer
     ds = scene_dataset(MIXED_BATCH * MIXED_STEPS // PER_FRAME, 2)
     n = len(ds)
@@ -1980,7 +2078,7 @@ def train_graphs_phase(tkern, batch, trainer_out, fused_out, mixed_out):
     from torch.profiler import ProfilerActivity, profile
     from plr2_tpu_torch import DenseFusionPipeline
     from plr2_tpu_torch.losses.add_loss import loss_branch
-    from plr2_tpu_torch.ops import launch_counts, reset_launch_counts
+    from plr2_tpu_torch.ops import reset_launch_counts
     from plr2_tpu_torch.parallel import TrainStep, make_train_step
     from plr2_tpu_torch.parallel.data_parallel import count_symmetric
     from plr2_tpu_torch.train import (BatchTrainer, FusedTrainer,
@@ -2444,7 +2542,7 @@ def int_mm_library(x, qparams):
 def quant_phase():
     """The int8 head ladder on the seeded PoseNet's heads and features."""
     from plr2_tpu_torch import DenseFusionPipeline
-    from plr2_tpu_torch.ops import launch_counts, mlp_head, quant, reset_launch_counts
+    from plr2_tpu_torch.ops import mlp_head, quant, reset_launch_counts
     pipe = DenseFusionPipeline(NUM_POINTS, NUM_OBJ, device=DEVICE, seed=0)
     x = head_features(pipe, BATCH)
     heads = {tag: head_layers(pipe, tag) for tag in HEAD_OUT}
@@ -2912,7 +3010,7 @@ def eval_phase():
     import numpy as np
     from plr2_tpu_torch import DenseFusionPipeline
     from plr2_tpu_torch.eval import evaluate
-    from plr2_tpu_torch.ops import launch_counts, reset_launch_counts
+    from plr2_tpu_torch.ops import reset_launch_counts
     ds = scene_dataset(EVAL_FRAMES, 3)
     n = len(ds)
     objs = [ds.items[i]["obj"] - 1 for i in range(n)]
@@ -3194,7 +3292,7 @@ def serve_phase():
     from plr2_tpu_torch import DenseFusionPipeline
     from plr2_tpu_torch.data import bbox as t_bbox
     from plr2_tpu_torch.data import preprocess as t_pre
-    from plr2_tpu_torch.ops import launch_counts, reset_launch_counts
+    from plr2_tpu_torch.ops import reset_launch_counts
     from plr2_tpu_torch.serving import FrameEstimator, frame_key_words
 
     scenes = [serve_scene(s) for s in range(SERVE_F)]
@@ -3673,7 +3771,7 @@ def real_data_phase(errs):
     from plr2_tpu_torch.data.prefetch import (finish_sample, host_prepare_raw,
                                               iterate_prefetch_samples)
     from plr2_tpu_torch.data.preprocess import draw
-    from plr2_tpu_torch.ops import launch_counts, reset_launch_counts
+    from plr2_tpu_torch.ops import reset_launch_counts
     from plr2_tpu_torch.train import Trainer
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -4176,7 +4274,7 @@ def seg_serve_checks(scenes, timings):
     Returns the launches by dtype."""
     from plr2_tpu_torch import DenseFusionPipeline
     from plr2_tpu_torch.models.segnet import build_segmenter
-    from plr2_tpu_torch.ops import launch_counts, reset_launch_counts
+    from plr2_tpu_torch.ops import reset_launch_counts
     from plr2_tpu_torch.serving import FrameEstimator
     from plr2_tpu_torch.data.preprocess import normalize_frames
     frame, models, depth = scenes[0]
@@ -4257,7 +4355,7 @@ def seg_pipeline_checks(scenes, timings, tmp):
     from plr2_tpu_torch.eval.segment import segment_frame
     from plr2_tpu_torch.eval.report import accuracy_table
     from plr2_tpu_torch.models.segnet import SegNet
-    from plr2_tpu_torch.ops import launch_counts, reset_launch_counts
+    from plr2_tpu_torch.ops import reset_launch_counts
     all_frames, models = [], {}
     for fr, mods, depth in scenes:
         all_frames.append(types.SimpleNamespace(
@@ -4652,7 +4750,7 @@ def par_run_frames(mesh, pipe, graphs, stacked, seeds, dt_name):
     Then the frames/s of the mesh and the F call at SERVE_ITERS, graphed
     if `graphs`. Returns the frames/s, the kernel launches of the first
     eager run over the mesh, and the largest |dt| of each comparison."""
-    from plr2_tpu_torch.ops import launch_counts, reset_launch_counts
+    from plr2_tpu_torch.ops import reset_launch_counts
     from plr2_tpu_torch.serving import FrameEstimator, FramePoses
     ax = mesh.axis("data")
     blk = ax.block(SERVE_F, "the frames")
@@ -4727,7 +4825,7 @@ def par_nccl_steps(timings, launches):
     ACCURACY_FACTOR). Returns the float64 single-device step (`f64_step`), the
     reference of the other steps' colour-encoder gradients."""
     from plr2_tpu_torch import DenseFusionPipeline
-    from plr2_tpu_torch.ops import launch_counts, reset_launch_counts
+    from plr2_tpu_torch.ops import reset_launch_counts
     from plr2_tpu_torch.parallel import make_mesh
     from plr2_tpu_torch.train import BatchTrainer
     batch = train_batch()
@@ -4805,7 +4903,7 @@ def par_nccl_axes(timings, launches, ref64):
     """(a): run_frames over the mesh, and the tensor-, point- and
     pipeline-parallel steps on 1-rank NCCL meshes, f32."""
     from plr2_tpu_torch import DenseFusionPipeline
-    from plr2_tpu_torch.ops import knn, launch_counts, reset_launch_counts
+    from plr2_tpu_torch.ops import knn, reset_launch_counts
     from plr2_tpu_torch.parallel import (make_inference_step, make_mesh,
                                          make_pp_estimate_step,
                                          make_sp_inference_step,
@@ -4916,7 +5014,7 @@ def par_rank(frames_args):
     split 4 / 4 against the unsharded call (f32 and bf16), sp_match
     bit-equal to nn_match, the pipelined estimate with pipe = 2."""
     from plr2_tpu_torch import DenseFusionPipeline
-    from plr2_tpu_torch.ops import knn, launch_counts, reset_launch_counts
+    from plr2_tpu_torch.ops import knn, reset_launch_counts
     from plr2_tpu_torch.parallel import (make_mesh, make_pp_estimate_step,
                                          make_train_step, sp_match)
     torch.cuda.set_device(0)
@@ -5184,7 +5282,7 @@ def tail_config_run(tmp, timings):
     ops.reset_launch_counts()
     want_est, got_est = ref.estimate(*inputs), pipe.estimate(*inputs)
     torch.cuda.synchronize()
-    launches = ops.launch_counts()
+    launches = launch_counts()
     if not all(torch.equal(a, b) for a, b in zip(got_est, want_est)):
         raise AssertionError("tail: the exported and reloaded pipeline's estimate differs")
     print(f"  export_torch {[Path(x).name for x in paths]} -> load_reference_checkpoint: "
@@ -5203,7 +5301,7 @@ def tail_overfit(timings):
         out = overfit_synthetic.main(["--steps", str(OVERFIT_STEPS), "--batch",
                                       str(BATCH), *flag])
         torch.cuda.synchronize()
-        launches[dt_name] = ops.launch_counts()
+        launches[dt_name] = launch_counts()
         (_, _, first), (_, _, last) = out["history"][0], out["history"][-1]
         timings[f"overfit_{dt_name}_samples_per_s"] = out["samples_per_s"]
         timings[f"overfit_{dt_name}_dis_first"] = first
@@ -5233,7 +5331,7 @@ def tail_e2e(tmp, timings):
     torch.cuda.synchronize()
     # the soak run's processes share the card meanwhile
     timings["e2e_short_wall_s"] = time.perf_counter() - t0
-    launches = ops.launch_counts()
+    launches = launch_counts()
     for line in buf.getvalue().splitlines():
         print(f"  e2e: {line}")
     if not (math.isfinite(res.auc) and res.num_samples > 0):
@@ -5314,7 +5412,7 @@ def tail_checked(timings):
         m = wrap(step)(batch, torch.Generator().manual_seed(5))
         torch.cuda.synchronize()
         out[name] = (m["loss"].clone(), m["dis"].clone(), time.perf_counter() - t0)
-    launches = ops.launch_counts()
+    launches = launch_counts()
     same = all(torch.equal(a, b) for a, b in zip(out["plain"][:2], out["checked"][:2]))
     bad = dict(batch, points=batch["points"].clone())
     bad["points"][0, 0, 0] = float("nan")

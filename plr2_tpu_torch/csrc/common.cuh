@@ -52,6 +52,41 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
 }
 
+// ---------------------------------------------------------------------------
+// Thread-block clusters (sm_90), for the split f32 decoder (upconv.cu):
+// this block's rank in its cluster and the cluster's size, a barrier of
+// every thread of the cluster (the arrive releases and the wait acquires,
+// so shared memory written before it is visible to the cluster after it),
+// and a 16-byte load from the shared memory of the cluster's block `rank`
+// at the offset of `p` in this block's.
+
+__device__ __forceinline__ int cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return (int)r;
+}
+
+__device__ __forceinline__ int cluster_size() {
+  uint32_t n;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;" : "=r"(n));
+  return (int)n;
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.aligned;\n"
+               "barrier.cluster.wait.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ float4 ld_cluster4(const void* p, int rank) {
+  uint32_t a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(a) : "r"(smem_addr(p)), "r"(rank));
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "r"(a) : "memory");
+  return v;
+}
+
 // Blocks the device runs at once with `per_sm` blocks on each SM (the
 // count of SMs is read once)
 inline int block_slots(int per_sm) {

@@ -74,10 +74,11 @@
 // 1.35 ms for the three stages at batch 8. An SM issues 128 FFMAs but
 // loads 32 words of shared memory a clock, so the design is about reuse.
 // A block owns 8 x 8 output pixels x 256 channels, 8 x 16 x 128 (Cout >=
-// 128; pick_f32_tile takes the shape with fewer waves: 40-pixel rows fill
-// 8-wide tiles) or 16 x 16 x 64 (Cout < 128: up_2, up_3); each thread 8
-// consecutive pixels of a row x 8 channels (64 accumulators). For each
-// input channel and kernel row dy a thread loads its 10 patch values once
+// 128; ops/upconv.py `f32_plan` takes the shape with fewer waves:
+// 40-pixel rows fill 8-wide tiles) or 16 x 16 x 64 (Cout < 128: up_2,
+// up_3); each thread 8 consecutive pixels of a row x 8 channels (64
+// accumulators). For each input channel and kernel row dy a thread loads
+// its 10 patch values once
 // (two float4s and a float2: the patch is channel-planar, [c][y][x] in
 // padded rows) and the three dx taps' 8 weights (two float4s each; the
 // packed weights keep Cout contiguous): 192 FFMAs for 9 loads, none
@@ -87,11 +88,33 @@
 // then the block blends the footprint from shared memory into the patch
 // (the same rounded products and sums as the plain version, so the patch
 // is bit-equal to its upsampled map) and runs the chunk. Two barriers a
-// chunk; 54-84 KB of shared memory and at most 128 registers a thread:
-// two blocks an SM. The weights are read as the (9, Cin, round4(Cout))
+// chunk; 54-84 KB of shared memory (64-84 KB split) and at most 128
+// registers a thread: two blocks an SM. The weights are read as the (9, Cin, round4(Cout))
 // packing of ops/upconv.py `pack_weights_f32`, a view of HWIO when Cout is
 // a multiple of 4. Any B, H, W, Cin and Cout: the footprint comes in
 // 4-byte copies where Cin is not a multiple of 4.
+//
+// f32 at one crop: split-K over a thread-block cluster. A batch-1 stage
+// gives the tiles above few blocks (up_1 at a 240 px crop: 64 blocks for
+// 264 slots), so most SMs idle and each busy one holds a single block. The
+// wrapper's plan (ops/upconv.py `f32_plan`, which also picks the tile)
+// then sets S, the largest of 1, 2, 4 and 8 for which blocks x S still
+// fits one wave of the card's clusters of S (plr2_upconv_f32_clusters:
+// a cluster's blocks share a GPC, so an H100 holds 264 blocks in clusters
+// of 2 but 248 in clusters of 4) and S <= the chunk count. S = 1
+// launches the kernel above unchanged, with no cluster attribute. S > 1
+// launches the kSplit instance as clusters of S blocks along x that own
+// the same output tile: rank r runs chunks [r nk / S, (r + 1) nk / S) of
+// the same loop, stages its 64 partial sums a thread in its own shared
+// memory (over the weight ring, which is free by then), and after a
+// cluster barrier finalises pixels [8r / S, 8(r + 1) / S) of every
+// thread's row of 8: it reads the S partials through distributed shared
+// memory, sums them in rank order 0 .. S-1, adds the bias, applies the
+// PReLU and stores. A second cluster barrier keeps every block resident
+// until the others have read its partials. The order is fixed, so a
+// launch repeats bit for bit; no workspace in device memory, no atomics
+// and no second kernel: the reduction is the epilogue of the same
+// upconv_sgemm_kernel, whose device time is the whole stage's.
 #include "common.cuh"
 
 // ---------------------------------------------------------------------------
@@ -367,13 +390,30 @@ struct UpF32 {
   static constexpr int kLow = kLH * kLW * CK;   // footprint [pixel][CK]
   static constexpr int kPatch = CK * kPH * kPWs;  // patch [CK][PH][PWs]
   static constexpr int kBytes = (int)sizeof(float) * (2 * (kW + kLow) + kPatch);
+  // the split's staged partial sums, 64 a thread, over the buffers above
+  static constexpr int kPartials = (int)sizeof(float) * 64 * kUpThreads;
+  static constexpr int kSplitBytes = kBytes > kPartials ? kBytes : kPartials;
 };
+
+// out[co .. co + 3] of one pixel: one 16-byte store where Cout is a
+// multiple of 4, else the channels below Cout one by one
+__device__ __forceinline__ void store4(float* o, const float (&v)[4], int co,
+                                       int Cout) {
+  if ((Cout & 3) == 0) {
+    *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (co + j < Cout) o[j] = v[j];
+  }
+}
 
 // x NHWC (B, H, W, Cin); w the (9, Cin, ldw) packing of ops/upconv.py
 // `pack_weights_f32` (ldw = round4(Cout), zeros past Cout); out NHWC
 // (B, 2H, 2W, Cout); x and w 16-byte aligned. vec16: Cin % 4 == 0, so the
-// footprint arrives in 16-byte copies (else 4-byte ones).
-template <int TH, int TW, int NB, int CK>
+// footprint arrives in 16-byte copies (else 4-byte ones). kSplit: launched
+// as clusters of S blocks along x, S consecutive blocks a tile (header note).
+template <int TH, int TW, int NB, int CK, bool kSplit>
 __global__ void __launch_bounds__(kUpThreads, 2) upconv_sgemm_kernel(
     const float* __restrict__ x, const float* __restrict__ w,
     const float* __restrict__ bias, const float* __restrict__ alpha,
@@ -387,9 +427,12 @@ __global__ void __launch_bounds__(kUpThreads, 2) upconv_sgemm_kernel(
   float* low = wsm + 2 * Cfg::kW;       // 2 footprints
   float* patch = low + 2 * Cfg::kLow;   // the upsampled patch
 
+  // the cluster's size and this block's rank in it (1 and 0 unsplit)
+  const int S = kSplit ? cluster_size() : 1, rank = kSplit ? cluster_rank() : 0;
+  const int tile = kSplit ? (int)blockIdx.x / S : (int)blockIdx.x;
   const int H2 = 2 * H, W2 = 2 * W;
   const int tiles_w = (W2 + TW - 1) / TW;
-  const int oy0 = (blockIdx.x / tiles_w) * TH, ox0 = (blockIdx.x % tiles_w) * TW;
+  const int oy0 = (tile / tiles_w) * TH, ox0 = (tile % tiles_w) * TW;
   const int ly0 = oy0 / 2 - 1, lx0 = ox0 / 2 - 1;  // footprint origin
   const int co0 = blockIdx.y * NB, b = blockIdx.z;
   const int tid = threadIdx.x;
@@ -401,6 +444,7 @@ __global__ void __launch_bounds__(kUpThreads, 2) upconv_sgemm_kernel(
   const int py = pg / (TW / 8), px0 = (pg % (TW / 8)) * 8;  // 8 pixels of a row
   const float* xb = x + (size_t)b * H * W * Cin;
   const int nk = (Cin + CK - 1) / CK;
+  const int cb = rank * nk / S, ce = (rank + 1) * nk / S;  // this block's chunks
 
   auto load = [&](int c, int s) {
     const int c0 = c * CK;
@@ -439,14 +483,14 @@ __global__ void __launch_bounds__(kUpThreads, 2) upconv_sgemm_kernel(
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
 
-  load(0, 0);
+  load(cb, 0);
   cp_async_commit();
 #pragma unroll 1
-  for (int c = 0; c < nk; ++c) {
-    const int s = c & 1;
+  for (int c = cb; c < ce; ++c) {
+    const int s = (c - cb) & 1;
     cp_async_wait<0>();  // chunk c has landed (this thread's copies)
     __syncthreads();     // everyone's; everyone is done with chunk c - 1
-    if (c + 1 < nk) load(c + 1, s ^ 1);
+    if (c + 1 < ce) load(c + 1, s ^ 1);
     cp_async_commit();
 
     // the upsampled patch of chunk c from its footprint: clamped sources,
@@ -503,71 +547,144 @@ __global__ void __launch_bounds__(kUpThreads, 2) upconv_sgemm_kernel(
 
   const float a = alpha[0];
   const int oy = oy0 + py;
-  if (oy >= H2) return;
+  if constexpr (!kSplit) {
+    if (oy >= H2) return;
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int co = co0 + h * (NB / 2) + 4 * cg;
-    if (co >= Cout) continue;
-    float bv[4];
+    for (int h = 0; h < 2; ++h) {
+      const int co = co0 + h * (NB / 2) + 4 * cg;
+      if (co >= Cout) continue;
+      float bv[4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) bv[j] = co + j < Cout ? bias[co + j] : 0.f;
+      for (int j = 0; j < 4; ++j) bv[j] = co + j < Cout ? bias[co + j] : 0.f;
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int ox = ox0 + px0 + i;
-      if (ox >= W2) continue;
-      float v[4];
+      for (int i = 0; i < 8; ++i) {
+        const int ox = ox0 + px0 + i;
+        if (ox >= W2) continue;
+        float v[4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        v[j] = acc[i][4 * h + j] + bv[j];
-        v[j] = v[j] >= 0.f ? v[j] : a * v[j];
-      }
-      float* o = out + (((size_t)b * H2 + oy) * W2 + ox) * Cout + co;
-      if ((Cout & 3) == 0) {
-        *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
-      } else {
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          if (co + j < Cout) o[j] = v[j];
+        for (int j = 0; j < 4; ++j) {
+          v[j] = acc[i][4 * h + j] + bv[j];
+          v[j] = v[j] >= 0.f ? v[j] : a * v[j];
+        }
+        store4(out + (((size_t)b * H2 + oy) * W2 + ox) * Cout + co, v, co, Cout);
       }
     }
+  } else {
+    // float4 k = 2 i + h of every thread (pixel i, channel half h) at
+    // part[k][tid]; no thread of this block reads the last chunk's weights
+    // or patch any more once all have passed the barrier
+    float4* part = reinterpret_cast<float4*>(smem);
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        part[(2 * i + h) * kUpThreads + tid] =
+            make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2],
+                        acc[i][4 * h + 3]);
+    cluster_sync();  // every rank's partials are staged
+#pragma unroll 1
+    for (int i = 8 * rank / S; i < 8 * (rank + 1) / S; ++i) {
+      const int ox = ox0 + px0 + i;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int co = co0 + h * (NB / 2) + 4 * cg;
+        const int k = (2 * i + h) * kUpThreads + tid;
+        float4 t = ld_cluster4(part + k, 0);
+#pragma unroll 1
+        for (int q = 1; q < S; ++q) {  // rank order: the same sum every launch
+          const float4 u = ld_cluster4(part + k, q);
+          t.x += u.x; t.y += u.y; t.z += u.z; t.w += u.w;
+        }
+        if (oy >= H2 || ox >= W2 || co >= Cout) continue;
+        float v[4] = {t.x, t.y, t.z, t.w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          v[j] += co + j < Cout ? bias[co + j] : 0.f;
+          v[j] = v[j] >= 0.f ? v[j] : a * v[j];
+        }
+        store4(out + (((size_t)b * H2 + oy) * W2 + ox) * Cout + co, v, co, Cout);
+      }
+    }
+    cluster_sync();  // no block leaves while another reads its partials
   }
 }
 
-template <int TH, int TW, int NB, int CK>
-int launch_f32(const void* x, const void* w, const void* bias, const void* alpha,
-               void* out, int B, int H, int W, int Cin, int Cout,
-               cudaStream_t stream) {
+// Raise the dynamic shared-memory limit of one instance once; `bytes` is
+// what it takes
+template <int TH, int TW, int NB, int CK, bool kSplit>
+cudaError_t ready_f32(int& bytes) {
   static int granted = 0;
   using Cfg = UpF32<TH, TW, NB, CK>;
-  auto kernel = upconv_sgemm_kernel<TH, TW, NB, CK>;
-  cudaError_t err = allow_smem(kernel, Cfg::kBytes, granted);
+  bytes = kSplit ? Cfg::kSplitBytes : Cfg::kBytes;
+  return allow_smem(upconv_sgemm_kernel<TH, TW, NB, CK, kSplit>, bytes, granted);
+}
+
+// split = S, the blocks a tile: 1 (a plain launch), 2, 4 or 8 (clusters)
+template <int TH, int TW, int NB, int CK>
+int launch_f32(const void* x, const void* w, const void* bias, const void* alpha,
+               void* out, int B, int H, int W, int Cin, int Cout, int split,
+               cudaStream_t stream) {
+  if (split > 1 && split > (Cin + CK - 1) / CK) return (int)cudaErrorInvalidValue;
+  int bytes = 0;
+  cudaError_t err = split == 1 ? ready_f32<TH, TW, NB, CK, false>(bytes)
+                               : ready_f32<TH, TW, NB, CK, true>(bytes);
   if (err != cudaSuccess) return (int)err;
   if (B > 0 && H > 0 && W > 0 && Cout > 0) {
     const int tiles = ((2 * H + TH - 1) / TH) * ((2 * W + TW - 1) / TW);
-    dim3 grid(tiles, (Cout + NB - 1) / NB, B);
-    kernel<<<grid, kUpThreads, Cfg::kBytes, stream>>>(
-        static_cast<const float*>(x), static_cast<const float*>(w),
-        static_cast<const float*>(bias), static_cast<const float*>(alpha),
-        static_cast<float*>(out), H, W, Cin, Cout, (Cout + 3) & ~3, Cin % 4 == 0);
+    const float* xf = static_cast<const float*>(x);
+    const float* wf = static_cast<const float*>(w);
+    const float* bf = static_cast<const float*>(bias);
+    const float* af = static_cast<const float*>(alpha);
+    float* of = static_cast<float*>(out);
+    const int ldw = (Cout + 3) & ~3, vec16 = Cin % 4 == 0;
+    if (split == 1) {
+      dim3 grid(tiles, (Cout + NB - 1) / NB, B);
+      upconv_sgemm_kernel<TH, TW, NB, CK, false><<<grid, kUpThreads, bytes, stream>>>(
+          xf, wf, bf, af, of, H, W, Cin, Cout, ldw, vec16);
+    } else {
+      cudaLaunchAttribute attr;
+      attr.id = cudaLaunchAttributeClusterDimension;
+      attr.val.clusterDim.x = split;
+      attr.val.clusterDim.y = 1;
+      attr.val.clusterDim.z = 1;
+      cudaLaunchConfig_t cfg = {};
+      cfg.gridDim = dim3(tiles * split, (Cout + NB - 1) / NB, B);
+      cfg.blockDim = dim3(kUpThreads);
+      cfg.dynamicSmemBytes = bytes;
+      cfg.stream = stream;
+      cfg.attrs = &attr;
+      cfg.numAttrs = 1;
+      err = cudaLaunchKernelEx(&cfg, upconv_sgemm_kernel<TH, TW, NB, CK, true>, xf, wf,
+                               bf, af, of, H, W, Cin, Cout, ldw, vec16);
+      if (err != cudaSuccess) return (int)err;
+    }
   }
   return (int)cudaGetLastError();
 }
 
-// The f32 tile for a stage: 0 = 8 x 8 px x 256 channels, 1 = 8 x 16 x 128,
-// 2 = 16 x 16 x 64 (Cout < 128). All three do the same work a block, so
-// the choice is by waves of two blocks an SM: up_1's 40-pixel rows take
-// three 16-wide tiles (48 columns) but five 8-wide ones; the 8 x 8 x 256
-// tile runs about 5% slower a block (four shared-memory wavefronts a
-// weight load, chunks of 4), so it is taken only for fewer waves.
-int pick_f32_tile(int B, int H, int W, int Cout) {
-  if (Cout < 128) return 2;
-  const long slots = block_slots(2);
-  auto waves = [&](int th, int tw, int nb) {
-    const long blocks = (long)B * ((2 * H + th - 1) / th) * ((2 * W + tw - 1) / tw) *
-                        ((Cout + nb - 1) / nb);
-    return (blocks + slots - 1) / slots;
-  };
-  return Cout >= 256 && 20 * waves(8, 8, 256) < 19 * waves(8, 16, 128) ? 0 : 1;
+// Clusters of `split` blocks of the split instance that the card holds at
+// once (cudaOccupancyMaxActiveClusters), or -1 on an error
+template <int TH, int TW, int NB, int CK>
+int clusters_f32(int split) {
+  int bytes = 0, n = 0;
+  if (ready_f32<TH, TW, NB, CK, true>(bytes) != cudaSuccess) return -1;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = split;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(split);
+  cfg.blockDim = dim3(kUpThreads);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaOccupancyMaxActiveClusters(
+             &n, (const void*)upconv_sgemm_kernel<TH, TW, NB, CK, true>, &cfg) ==
+                 cudaSuccess
+             ? n
+             : -1;
 }
 
 }  // namespace
@@ -578,26 +695,45 @@ int pick_f32_tile(int B, int H, int W, int Cout) {
 // (9, Cin, round4(Cout)) packing of ops/upconv.py `pack_weights_f32`, any
 // widths; bf16, the (9, Cout, Cin) packing of ops/upconv.py `pack_weights`
 // (tap-major, K-major rows), with Cin a multiple of 8 and every pointer
-// 16-byte aligned.
+// 16-byte aligned. tile and split: the f32 plan of ops/upconv.py
+// `f32_plan` (tile 0 = 8 x 8 px x 256 channels, 1 = 8 x 16 x 128, 2 = 16 x
+// 16 x 64; split 1, 2, 4 or 8 blocks a tile, at most the chunk count);
+// bf16 reads neither.
 extern "C" int plr2_upconv3x3_prelu(int dtype, const void* x, const void* w,
                                     const void* bias, const void* alpha,
                                     void* out, int B, int H, int W, int Cin,
-                                    int Cout, void* stream) {
+                                    int Cout, void* stream, int tile, int split) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == plr2::kBF16)
     return Cout >= 256
                ? plr2::launch_wgmma<256>(x, w, bias, alpha, out, B, H, W, Cin, Cout, s)
                : plr2::launch_wgmma<64>(x, w, bias, alpha, out, B, H, W, Cin, Cout, s);
-  if (dtype == plr2::kF32)
-    switch (plr2::pick_f32_tile(B, H, W, Cout)) {
-      case 0:
-        return plr2::launch_f32<8, 8, 256, 4>(x, w, bias, alpha, out, B, H, W, Cin, Cout, s);
-      case 1:
-        return plr2::launch_f32<8, 16, 128, 8>(x, w, bias, alpha, out, B, H, W, Cin, Cout, s);
-      default:
-        return plr2::launch_f32<16, 16, 64, 8>(x, w, bias, alpha, out, B, H, W, Cin, Cout, s);
-    }
+  if (dtype != plr2::kF32 || (split != 1 && split != 2 && split != 4 && split != 8))
+    return (int)cudaErrorInvalidValue;
+  switch (tile) {
+    case 0:
+      return plr2::launch_f32<8, 8, 256, 4>(x, w, bias, alpha, out, B, H, W, Cin, Cout,
+                                            split, s);
+    case 1:
+      return plr2::launch_f32<8, 16, 128, 8>(x, w, bias, alpha, out, B, H, W, Cin, Cout,
+                                             split, s);
+    case 2:
+      return plr2::launch_f32<16, 16, 64, 8>(x, w, bias, alpha, out, B, H, W, Cin, Cout,
+                                             split, s);
+  }
   return (int)cudaErrorInvalidValue;
+}
+
+// For the f32 plan (ops/upconv.py `card_slots`): the clusters of `split`
+// (2, 4 or 8) blocks of tile `tile` that the card holds at once, or -1
+extern "C" int plr2_upconv_f32_clusters(int tile, int split) {
+  if (split != 2 && split != 4 && split != 8) return -1;
+  switch (tile) {
+    case 0: return plr2::clusters_f32<8, 8, 256, 4>(split);
+    case 1: return plr2::clusters_f32<8, 16, 128, 8>(split);
+    case 2: return plr2::clusters_f32<16, 16, 64, 8>(split);
+  }
+  return -1;
 }
 
 extern "C" const char* plr2_error_string(int err) {

@@ -13,8 +13,11 @@ _KERNEL_MODULES = {"mlp_head": mlp_head, "upconv3x3_prelu": upconv,
 
 
 def launch_counts() -> dict:
-    """Kernel launches since the last reset, by kernel name."""
+    """Kernel launches since the last reset, by kernel name, and
+    `upconv3x3_prelu.split`: the f32 decoder launches split over a
+    cluster (counted in `upconv3x3_prelu` too)."""
     counts = {name: mod.launches for name, mod in _KERNEL_MODULES.items()}
+    counts["upconv3x3_prelu.split"] = upconv.split_launches
     counts.update(knn.launches)
     return counts
 
@@ -22,5 +25,6 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for mod in _KERNEL_MODULES.values():
         mod.launches = 0
+    upconv.split_launches = 0
     for name in knn.launches:
         knn.launches[name] = 0

@@ -39,7 +39,8 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
 _SIGNATURES = {
     "plr2_mlp_head": [_I] + [_P] * 11 + [_I] * 6 + [_P],
-    "plr2_upconv3x3_prelu": [_I] + [_P] * 5 + [_I] * 5 + [_P],
+    "plr2_upconv3x3_prelu": [_I] + [_P] * 5 + [_I] * 5 + [_P, _I, _I],
+    "plr2_upconv_f32_clusters": [_I, _I],
     "plr2_nn_argmin": [_P] * 3 + [_I] * 3 + [_P],
     "plr2_nn_match": [_P] * 3 + [_I] * 3 + [_P],
     "plr2_nn_match_mxu": [_P] * 3 + [_I] * 3 + [_P],

@@ -12,6 +12,19 @@ of 4) and takes any widths. Same signature as the JAX kernel: x NHWC
 (B, H, W, Cin), w HWIO (3, 3, Cin, Cout), bias (Cout,), alpha a
 one-element tensor; returns (B, 2H, 2W, Cout).
 
+The f32 launch follows ``f32_plan``: the tile, by the grid's waves, and
+the split S. Where the tile's blocks fill under half the card's slots
+(one crop: up_1 at a 240 px crop has 64 blocks for 264 slots), S blocks
+of a thread-block cluster share each output tile, rank r taking the r-th
+contiguous S-th of the input-channel chunks; they reduce their partial
+sums through distributed shared memory, in rank order (so a launch
+repeats bit for bit), inside the same kernel's epilogue. No second kernel
+and no workspace: the stage stays one ``upconv_sgemm_kernel`` launch,
+whose device time is all the stage's. The slots come from the card
+(``card_slots``): a cluster's blocks share a GPC, so an H100 holds 264
+blocks unsplit and in clusters of 2, but only 248 in clusters of 4 and
+240 in clusters of 8. ``split_launches`` counts the launches with S > 1.
+
 ``upconv3x3_prelu_forward`` launches the kernel for CUDA tensors and
 raises on anything the kernel does not take; only for CPU tensors does it
 run ``upconv3x3_prelu_plain``, which repeats the kernel's arithmetic: the
@@ -27,12 +40,21 @@ no backward kernel, so none is owed here.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
 from plr2_tpu_torch.ops import _build
 
 launches = 0
+split_launches = 0
+
+# the f32 kernel's tiles (csrc/upconv.cu `plr2_upconv3x3_prelu`): output
+# rows, output columns and output channels a block, input channels a chunk
+F32_TILES = ((8, 8, 256, 4), (8, 16, 128, 8), (16, 16, 64, 8))
+# the splits a launch may take (8: the portable cluster size)
+SPLITS = (1, 2, 4, 8)
 
 
 def _upsample2x_axis(v: torch.Tensor, dim: int) -> torch.Tensor:
@@ -108,11 +130,69 @@ def tc_widths(x: torch.Tensor, w: torch.Tensor) -> None:
         f"x {tuple(x.shape)} and w {tuple(w.shape)}")
 
 
+@functools.lru_cache(maxsize=None)
+def _card_slots(index: int) -> dict:
+    with torch.cuda.device(index):
+        sms = torch.cuda.get_device_properties(index).multi_processor_count
+        lib = _build.lib()
+        slots = {1: 2 * sms}
+        for split in SPLITS[1:]:
+            held = [lib.plr2_upconv_f32_clusters(tile, split)
+                    for tile in range(len(F32_TILES))]
+            if min(held) <= 0:
+                raise RuntimeError(f"upconv3x3_prelu: the card holds no "
+                                   f"cluster of {split} f32 blocks ({held})")
+            slots[split] = split * min(held)
+    return slots
+
+
+def card_slots(device: torch.device) -> dict:
+    """The f32 kernel's blocks that a CUDA device holds at once, by split:
+    two an SM (``__launch_bounds__``) unsplit, and S times the clusters of
+    S that ``cudaOccupancyMaxActiveClusters`` counts (the least over the
+    tiles), read once a device."""
+    index = device.index
+    return _card_slots(torch.cuda.current_device() if index is None else index)
+
+
+def f32_plan(b: int, h: int, w: int, cin: int, cout: int,
+             slots: dict) -> tuple:
+    """(tile, split) of the f32 kernel for x (b, h, w, cin) -> cout
+    channels on a card that holds `slots[S]` blocks at once in clusters of
+    S (``card_slots``; `slots[1]`: two blocks an SM).
+
+    The tile (an index of ``F32_TILES``): 16 x 16 x 64 below 128 output
+    channels; else 8 x 16 x 128, or 8 x 8 x 256 (Cout >= 256) where that
+    takes fewer waves: all three do the same work a block, up_1's
+    40-pixel rows take three 16-wide tiles (48 columns) but five 8-wide
+    ones, and the 8 x 8 x 256 tile runs about 5% slower a block (four
+    shared-memory wavefronts a weight load, chunks of 4).
+
+    The split: the largest S of ``SPLITS`` such that the tile's blocks
+    times S still fit one wave of the card's clusters of S and S is at
+    most the number of input-channel chunks; 1 (the plain launch)
+    wherever the blocks alone fill over half the slots."""
+    def blocks(tile):
+        th, tw, nb, _ = F32_TILES[tile]
+        return b * -(-2 * h // th) * -(-2 * w // tw) * -(-cout // nb)
+
+    def waves(tile):
+        return -(-blocks(tile) // slots[1])
+
+    if cout < 128:
+        tile = 2
+    else:
+        tile = 0 if cout >= 256 and 20 * waves(0) < 19 * waves(1) else 1
+    n, chunks = blocks(tile), -(-cin // F32_TILES[tile][3])
+    fits = [s for s in SPLITS if 0 < n * s <= slots[s] and s <= chunks]
+    return tile, max(fits, default=1)
+
+
 def upconv3x3_prelu_forward(x: torch.Tensor, w: torch.Tensor,
                             bias: torch.Tensor,
                             alpha: torch.Tensor) -> torch.Tensor:
     """The stage through the CUDA kernel (plain PyTorch for CPU tensors)."""
-    global launches
+    global launches, split_launches
     if x.device.type == "cpu":
         return upconv3x3_prelu_plain(x, w, bias, alpha)
     _check(x, w, bias, alpha)
@@ -121,16 +201,19 @@ def upconv3x3_prelu_forward(x: torch.Tensor, w: torch.Tensor,
     if x.dtype == torch.bfloat16:
         tc_widths(x, w)
         w = pack_weights(w)
+        tile, split = 0, 1  # not read by the bf16 kernel
     else:
         w = pack_weights_f32(w)
+        tile, split = f32_plan(b, h, wd, cin, cout, card_slots(x.device))
     x, w = _build.aligned16(x), _build.aligned16(w)
     out = torch.empty((b, 2 * h, 2 * wd, cout), device=x.device, dtype=x.dtype)
     err = _build.lib().plr2_upconv3x3_prelu(
         _build.DTYPE_CODES[x.dtype], x.data_ptr(), w.data_ptr(),
         bias.data_ptr(), alpha.data_ptr(), out.data_ptr(), b, h, wd, cin, cout,
-        _build.stream_of(x))
+        _build.stream_of(x), tile, split)
     _build.check(err, "upconv3x3_prelu")
     launches += 1
+    split_launches += split > 1
     return out
 
 

@@ -17,11 +17,16 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+from plr2_tpu_torch import ops
 from plr2_tpu_torch.ops import _build, mlp_head, upconv
 
 torch.set_num_threads(2)
 
 HEAD_WIDTHS = (1408, 640, 256, 128)
+# the f32 kernel's blocks an H100 (132 SMs) holds at once by split, as
+# upconv.card_slots reads them on the card: two an SM unsplit and in
+# clusters of 2; clusters of 4 and 8 lose blocks to the GPCs' edges
+H100_SLOTS = {1: 264, 2: 264, 4: 248, 8: 240}
 
 
 def _t(rng, shape, scale=1.0):
@@ -169,6 +174,7 @@ def fake_lib(monkeypatch):
     monkeypatch.setattr(_build, "require_cuda", lambda tensors, what: None)
     monkeypatch.setattr(_build, "lib", lambda: fake)
     monkeypatch.setattr(_build, "stream_of", lambda t: 0)
+    monkeypatch.setattr(upconv, "card_slots", lambda device: H100_SLOTS)
     return fake
 
 
@@ -191,3 +197,147 @@ def test_f32_upconv_wrapper_passes_the_stage(fake_lib):
     assert out.shape == (1, 18, 12, 130)
     ((name, args),) = fake_lib.calls
     assert name == "plr2_upconv3x3_prelu" and args[6:11] == (1, 9, 6, 37, 130)
+
+
+# the decoder stages (b, h, w, Cin, Cout) and the f32 plan (tile, split)
+# on an H100: batch 1 at a 160 px crop (a per-sample training forward) and
+# at 240 (one crop served), batch 8 and 128 at 160 (chip_smoke.py's
+# kernels phase) and 32 (the batched trainer), and chip_smoke.py's ragged
+# stages; only batch-1-sized grids split
+PLANS = [
+    ((1, 20, 20, 1024, 256), (1, 8)), ((1, 40, 40, 256, 64), (2, 8)),
+    ((1, 80, 80, 64, 64), (2, 2)),
+    ((1, 30, 30, 1024, 256), (1, 2)), ((1, 60, 60, 256, 64), (2, 2)),
+    ((1, 120, 120, 64, 64), (2, 1)),
+    ((8, 20, 20, 1024, 256), (1, 1)), ((8, 40, 40, 256, 64), (2, 1)),
+    ((8, 80, 80, 64, 64), (2, 1)),
+    ((32, 20, 20, 1024, 256), (1, 1)), ((32, 40, 40, 256, 64), (2, 1)),
+    ((32, 80, 80, 64, 64), (2, 1)),
+    ((128, 20, 20, 1024, 256), (0, 1)), ((128, 40, 40, 256, 64), (2, 1)),
+    ((128, 80, 80, 64, 64), (2, 1)),
+    ((1, 5, 7, 64, 24), (2, 8)), ((3, 21, 13, 1024, 256), (1, 2)),
+    ((3, 5, 7, 1024, 24), (2, 8)), ((1, 21, 13, 64, 256), (1, 8)),
+    ((2, 5, 7, 6, 10), (2, 1)), ((1, 9, 6, 37, 130), (1, 4)),
+]
+
+
+def tile_by_waves(b, h, w, cout, slots):
+    """The tile rule written out independently of `f32_plan`: 16 x 16 x
+    64 below 128 channels, else 8 x 8 x 256 only where it takes fewer
+    waves (by the 20 : 19 margin) than 8 x 16 x 128."""
+    if cout < 128:
+        return 2
+
+    def waves(th, tw, nb):
+        blocks = b * -(-2 * h // th) * -(-2 * w // tw) * -(-cout // nb)
+        return -(-blocks // slots)
+    return 0 if cout >= 256 and 20 * waves(8, 8, 256) < 19 * waves(8, 16, 128) else 1
+
+
+@pytest.mark.parametrize("shape,plan", PLANS)
+def test_f32_plan(shape, plan):
+    b, h, w, cin, cout = shape
+    tile, split = upconv.f32_plan(*shape, H100_SLOTS)
+    assert (tile, split) == plan
+    assert tile == tile_by_waves(b, h, w, cout, H100_SLOTS[1])
+    th, tw, nb, ck = upconv.F32_TILES[tile]
+    blocks = b * -(-2 * h // th) * -(-2 * w // tw) * -(-cout // nb)
+    assert split in (1, 2, 4, 8) and split <= -(-cin // ck)
+    assert split == 1 or blocks * split <= H100_SLOTS[split]
+    # the largest such split: twice as many would not fit or has no chunks
+    assert (split == 8 or blocks * 2 * split > H100_SLOTS[2 * split]
+            or 2 * split > -(-cin // ck))
+
+
+def split_implicit_gemm_f32(x, wp, bias, alpha, cout, ck, split):
+    """`implicit_gemm_f32` as a split launch computes it: rank r sums the
+    taps over its chunks [r nk / S, (r + 1) nk / S) of CK input channels,
+    and the S partial sums are added in rank order before bias and PReLU."""
+    up = upconv.upsample2x_bilinear(x)
+    b, h2, w2, cin = up.shape
+    pad = F.pad(up, (0, 0, 1, 1, 1, 1))
+    nk = -(-cin // ck)
+    total, seen = None, []
+    for r in range(split):
+        chunks = range(r * nk // split, (r + 1) * nk // split)
+        assert len(chunks) > 0
+        seen += chunks
+        part = torch.zeros((b, h2, w2, wp.shape[2]))
+        for c in chunks:
+            lo, hi = c * ck, min(cin, (c + 1) * ck)
+            for tap in range(9):
+                dy, dx = divmod(tap, 3)
+                part += pad[:, dy:dy + h2, dx:dx + w2, lo:hi] @ wp[tap, lo:hi]
+        total = part if total is None else total + part
+    assert seen == list(range(nk))  # every chunk once
+    y = total[..., :cout] + bias
+    return torch.where(y >= 0, y, alpha.reshape(()) * y)
+
+
+@pytest.mark.parametrize("shape", [(1, 5, 7, 64, 24), (1, 9, 6, 37, 130),
+                                   (1, 4, 4, 24, 10), (1, 3, 5, 40, 256)])
+def test_split_partials_give_the_plain_stage(rng, shape):
+    b, h, w, cin, cout = shape
+    tile, split = upconv.f32_plan(*shape, H100_SLOTS)
+    assert split > 1
+    x = _t(rng, (b, h, w, cin))
+    wk = _t(rng, (3, 3, cin, cout), (9 * cin) ** -0.5)
+    bias, alpha = _t(rng, (cout,), 0.1), torch.tensor([0.25])
+    got = split_implicit_gemm_f32(x, upconv.pack_weights_f32(wk), bias, alpha,
+                                  cout, upconv.F32_TILES[tile][3], split)
+    want = upconv.upconv3x3_prelu_plain(x, wk, bias, alpha)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("shape", [(1, 9, 6, 37, 130), (1, 30, 30, 1024, 256),
+                                   (8, 20, 20, 1024, 256), (2, 5, 7, 6, 10)])
+def test_f32_upconv_wrapper_passes_the_plan(fake_lib, monkeypatch, shape):
+    """One C call a launch, the plan as its two trailing arguments, and the
+    split launches counted apart."""
+    monkeypatch.setattr(upconv, "launches", 0)
+    monkeypatch.setattr(upconv, "split_launches", 0)
+    b, h, w, cin, cout = shape
+    upconv.upconv3x3_prelu_forward(_meta(b, h, w, cin), _meta(3, 3, cin, cout),
+                                   _meta(cout), _meta(1))
+    ((name, args),) = fake_lib.calls
+    plan = upconv.f32_plan(*shape, H100_SLOTS)
+    assert name == "plr2_upconv3x3_prelu" and args[6:11] == shape
+    assert args[12:] == plan
+    assert (upconv.launches, upconv.split_launches) == (1, int(plan[1] > 1))
+    counts = ops.launch_counts()
+    assert counts["upconv3x3_prelu"] == 1
+    assert counts["upconv3x3_prelu.split"] == int(plan[1] > 1)
+    ops.reset_launch_counts()
+    assert ops.launch_counts()["upconv3x3_prelu.split"] == 0
+
+
+def test_bf16_upconv_wrapper_passes_an_unsplit_plan(fake_lib, monkeypatch):
+    monkeypatch.setattr(upconv, "launches", 0)
+    monkeypatch.setattr(upconv, "split_launches", 0)
+    meta = lambda *s: torch.empty(s, device="meta", dtype=torch.bfloat16)
+    upconv.upconv3x3_prelu_forward(meta(1, 9, 6, 40), meta(3, 3, 40, 130),
+                                   meta(130), meta(1))
+    ((name, args),) = fake_lib.calls
+    assert args[0] == _build.DTYPE_CODES[torch.bfloat16] and args[12:] == (0, 1)
+    assert upconv.split_launches == 0
+
+
+@pytest.mark.parametrize("batch,crop,splits", [(1, 240, 2), (1, 160, 3),
+                                               (2, 240, 2)])
+def test_psp_decoder_splits_at_one_crop(monkeypatch, batch, crop, splits):
+    """The stages a PSPNet forward hands the decoder kernel, planned for
+    an H100: up_1 and up_2 split at a 240 px crop, all three at 160."""
+    from plr2_tpu_torch.models.pspnet import PSPNet
+    plans = []
+
+    def record(x, w, bias, alpha):
+        plans.append(upconv.f32_plan(*x.shape, w.shape[3], H100_SLOTS))
+        return upconv.upconv3x3_prelu_plain(x, w, bias, alpha)
+
+    monkeypatch.setattr(upconv, "upconv3x3_prelu_forward", record)
+    torch.manual_seed(0)
+    net = PSPNet().eval()
+    with torch.no_grad():
+        net(torch.randn(batch, crop, crop, 3), torch.zeros((batch, 4), dtype=torch.long))
+    assert len(plans) == 3
+    assert sum(split > 1 for _, split in plans) == splits
